@@ -21,7 +21,22 @@ and prints no result line):
   5. serve 8 requests of 3 s seeded noise through BatchRecognizer in 0.2 s
      pieces, with every launch count zeroed just before; every Result()
      must be JSON with a text field, the kernel must have launched, and
-     the frontier and records must live on the card.
+     the frontier and records must live on the card;
+  6. the kernel at the streaming recognizer's B = 1 shapes against its
+     plain version, bit for bit, with both times;
+  7. streaming on the same model directory through Model(dir,
+     device="cuda") + KaldiRecognizer, counts zeroed just before: a 10.5 s
+     stream in 0.2 s pieces with words on and a PartialResult every second
+     (it must fold its record window at least once), a 3 s stream at 8000
+     Hz through the resampler, and a 3 s stream with 3 alternatives; every
+     result must have the source's JSON schema, the kernel must have
+     launched, the frontier and records must live on the card, and the
+     10.5 s stream run again with the plain gather must give identical
+     JSON;
+  8. FusedPipeline.run_scan at bench.py's operating point with B = 32:
+     0.48 s chunks, 4 s per channel, lattice records on, plausible scores
+     (make_plausible_loglikes, snr 2.0) through ll_bias; one warm-up drive,
+     then one timed drive with the counts zeroed just before.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Weights and audio come from fixed seeds;
 nothing is downloaded.
@@ -68,16 +83,16 @@ def bits(torch, x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def phase_kernel(torch, dev):
+def phase_kernel(torch, dev, cases=(
+        ("ll", "float32", B, 6008, 28000),   # acoustic lookup ll[b, pdf]
+        ("tsil", "int32", B, 7000, 7000),    # trailing-silence lookup
+        ("ragged", "float32", 3, 300, 4097),  # N one past a block
+)):
     from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
     g = torch.Generator().manual_seed(SEED)
     results = {}
-    cases = [
-        ("ll", torch.float32, B, 6008, 28000),   # acoustic lookup ll[b, pdf]
-        ("tsil", torch.int32, B, 7000, 7000),    # trailing-silence lookup
-        ("ragged", torch.float32, 3, 300, 4097),  # N one past a block
-    ]
+    cases = [(name, getattr(torch, dt), b, P, N) for name, dt, b, P, N in cases]
     max_err = 0.0
     for name, dtype, b, P, N in cases:
         if dtype == torch.float32:
@@ -276,6 +291,181 @@ def phase_serving(torch, bm):
     return launches
 
 
+def check_schema(out: str, kind: str) -> dict:
+    """A KaldiRecognizer result against the source's JSON schema."""
+    res = json.loads(out)
+    word_keys = {"conf", "end", "start", "word"}
+    if kind == "partial":
+        ok = isinstance(res.get("partial"), str) and set(res) <= {"partial", "partial_result"}
+    elif kind == "final":
+        ok = isinstance(res.get("text"), str) and set(res) <= {"text", "result"} and all(
+            set(w) == word_keys for w in res.get("result", []))
+    else:  # alternatives
+        alts = res.get("alternatives")
+        ok = set(res) == {"alternatives"} and isinstance(alts, list) and alts and all(
+            isinstance(a.get("text"), str) and isinstance(a.get("confidence"), float)
+            and all(set(w) == word_keys - {"conf"} for w in a.get("result", []))
+            for a in alts)
+    if not ok:
+        raise AssertionError(f"{kind} result does not have the source's schema: {out}")
+    return out
+
+
+def noise_pcm(seconds, rate, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.clip(rng.standard_normal(int(seconds * rate)) * 500, -32768,
+                   32767).astype("<i2").tobytes()
+
+
+def stream_long(model, pcm, rate):
+    """The 10.5 s stream: 0.2 s pieces, words on, a PartialResult every
+    second, then FinalResult.  Returns (every result string, timings)."""
+    import numpy as np
+
+    import vosk_tpu_torch
+
+    rec = vosk_tpu_torch.KaldiRecognizer(model, rate)
+    rec.SetWords(True)
+    r = rec._rec
+    piece = int(0.2 * rate) * 2
+    outs, accept_s, partial_s = [], [], []
+    first_fold_s, on_card = None, True
+    for i, off in enumerate(range(0, len(pcm), piece)):
+        t0 = time.perf_counter()
+        hit = rec.AcceptWaveform(pcm[off: off + piece])
+        accept_s.append(time.perf_counter() - t0)
+        if hit:
+            outs.append(check_schema(rec.Result(), "final"))
+        if first_fold_s is None and r.metrics.count.get("fold"):
+            first_fold_s = r.metrics.total_s["fold"]
+        if r._records:
+            on_card = on_card and r._frontier["state"].is_cuda and r._records[-1]["pm"].is_cuda
+        if i % 5 == 4:
+            t0 = time.perf_counter()
+            outs.append(check_schema(rec.PartialResult(), "partial"))
+            partial_s.append(time.perf_counter() - t0)
+    folded = r._folded_frames
+    t0 = time.perf_counter()
+    outs.append(check_schema(rec.FinalResult(), "final"))
+    final_s = time.perf_counter() - t0
+    if not on_card:
+        raise AssertionError("the recognizer's frontier/records were not CUDA tensors")
+    if folded <= 0 or first_fold_s is None:
+        raise AssertionError("the 10.5 s stream never folded its record window")
+    return outs, dict(accept=np.array(accept_s), partial=np.array(partial_s),
+                      first_fold=first_fold_s, final=final_s, folded=folded,
+                      stages=rec.GetMetrics()["stages"])
+
+
+def phase_streaming(torch, path):
+    """KaldiRecognizer on the full-width model; returns the kernel's launch
+    count over the three streams."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(path), device="cuda")
+    vosk_tpu_torch.KaldiRecognizer(model, 16000)  # builds the shared decoder
+    torch.cuda.synchronize()
+    log(f"streaming: Model + first KaldiRecognizer (graph prep) "
+        f"{time.perf_counter() - t0:.3f} s")
+    dec = model._model.shared_decoder()
+    long_pcm = noise_pcm(10.5, 16000, SEED + 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather_rows.launches = 0  # every kernel count, just before the main path
+    outs, t = stream_long(model, long_pcm, 16000)
+    rec = vosk_tpu_torch.KaldiRecognizer(model, 8000)
+    rec.SetWords(True)
+    pcm8 = noise_pcm(3.0, 8000, SEED + 5)
+    for off in range(0, len(pcm8), 3200):
+        rec.AcceptWaveform(pcm8[off: off + 3200])
+    res8 = check_schema(rec.FinalResult(), "final")
+    rec = vosk_tpu_torch.KaldiRecognizer(model, 16000)
+    rec.SetMaxAlternatives(3)
+    pcm_alt = noise_pcm(3.0, 16000, SEED + 6)
+    for off in range(0, len(pcm_alt), 6400):
+        rec.AcceptWaveform(pcm_alt[off: off + 6400])
+    res_alt = check_schema(rec.FinalResult(), "alternatives")
+    torch.cuda.synchronize()
+    launches = gather_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches <= 0:
+        raise AssertionError("the streaming path never launched the gather kernel")
+    # the same 10.5 s stream through the plain gather (single-threaded, so
+    # swapping the shared decoder's gather is safe): identical JSON
+    dec._gather = gather_rows_plain
+    try:
+        plain_outs, _ = stream_long(model, long_pcm, 16000)
+    finally:
+        dec._gather = gather_rows
+    if plain_outs != outs:
+        raise AssertionError("the 10.5 s stream differs between the kernel and the plain gather")
+    a = t["accept"]
+    log(f"streaming 10.5 s in 0.2 s pieces (B=1, K={dec.K}, R={dec.R}): AcceptWaveform "
+        f"p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms ({len(a)} pieces); "
+        f"PartialResult p50 {np.median(t['partial']) * 1e3:.3f} ms max "
+        f"{t['partial'].max() * 1e3:.3f} ms; first fold {t['first_fold'] * 1e3:.3f} ms "
+        f"({t['folded']} frames folded); FinalResult {t['final'] * 1e3:.3f} ms; "
+        f"peak device memory {peak:.3f} GiB; gather launches {launches}; "
+        f"identical JSON with the plain gather ({len(outs)} results)")
+    log("streaming stages (host s): " + json.dumps(
+        {k: v["seconds"] for k, v in t["stages"].items()}))
+    log("streaming results: " + json.dumps({
+        "long": json.loads(outs[-1])["text"][:40], "8000 Hz": json.loads(res8)["text"][:40],
+        "alternatives": [x["text"][:20] for x in json.loads(res_alt)["alternatives"]]}))
+    return launches
+
+
+def phase_run_scan(torch, bm):
+    """bench.py's path at its operating point, B = 32."""
+    import numpy as np
+
+    from vosk_tpu_torch.ops.gather import gather_rows
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+    from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
+
+    model = bm._model
+    pipe = FusedPipeline(model, batch=B, chunk_seconds=0.48)
+    S, P = pipe.chunk_samples, model.am_config.num_pdfs
+    n_chunks = int(4.0 * model.config.sample_rate) // S
+    rng = np.random.default_rng(SEED)
+    audio = torch.from_numpy(
+        (rng.standard_normal((n_chunks, B, S)) * 500).astype(np.float32)).to(pipe.device)
+    lb = make_plausible_loglikes(model.graph, P, B, n_chunks * pipe.T, snr=2.0, seed=SEED)
+    ll_bias = torch.from_numpy(np.ascontiguousarray(
+        lb.reshape(n_chunks, pipe.T, B, P).swapaxes(1, 2))).to(pipe.device)
+    del lb
+    st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)  # warm-up
+    torch.cuda.synchronize()
+    del recs, best, st
+    state = pipe.init_state()
+    torch.cuda.synchronize()
+    gather_rows.launches = 0  # every kernel count, just before the main path
+    t0 = time.perf_counter()
+    state, recs, best = pipe.run_scan(state, audio, ll_bias=ll_bias)
+    best_h = best.cpu()
+    dt = time.perf_counter() - t0
+    launches = gather_rows.launches
+    if launches <= 0:
+        raise AssertionError("run_scan never launched the gather kernel")
+    if not torch.isfinite(best_h).all():
+        raise AssertionError(f"run_scan best costs are not finite: {best_h}")
+    live = torch.isfinite(recs["f_cost"]).sum(-1).float()
+    frames = n_chunks * pipe.T
+    audio_s = n_chunks * B * S / model.config.sample_rate
+    log(f"run_scan B={B}, {n_chunks} chunks of 0.48 s ({pipe.T} frames each), records "
+        f"{tuple(recs['pm'].shape)}: {dt:.3f} s for {audio_s:.2f} audio-s = "
+        f"{audio_s / dt:.3f} audio-s/s, {dt / frames * 1e3:.3f} ms per decoded frame; "
+        f"live tokens p50 {live.median().item():.0f} (min {live.min().item():.0f}, "
+        f"max {live.max().item():.0f}); gather launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -307,6 +497,13 @@ def main() -> int:
         phase_front_end(torch, bm)
         phase_decoder(torch, bm)
         launches = phase_serving(torch, bm)
+        b1, b1_err = phase_kernel(torch, dev, cases=(
+            ("b1_ll", "float32", 1, 6008, 28000),   # streaming acoustic lookup
+            ("b1_tsil", "int32", 1, 7000, 7000),    # streaming tsil lookup
+        ))
+        max_err = max(max_err, b1_err)
+        launches_streaming = phase_streaming(torch, Path(tmp) / "bench_model")
+        launches_run_scan = phase_run_scan(torch, bm)
 
     kernels = [{
         "name": "gather_rows",
@@ -319,6 +516,12 @@ def main() -> int:
         "plain_ms": times["ll"][1],
         "tsil_ms": times["tsil"][0],
         "tsil_plain_ms": times["tsil"][1],
+        "launches_streaming": launches_streaming,
+        "launches_run_scan": launches_run_scan,
+        "b1_ms": b1["b1_ll"][0],
+        "b1_plain_ms": b1["b1_ll"][1],
+        "b1_tsil_ms": b1["b1_tsil"][0],
+        "b1_tsil_plain_ms": b1["b1_tsil"][1],
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

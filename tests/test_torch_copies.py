@@ -1,10 +1,12 @@
 """The port's numpy/host copies held to their JAX-package sources.
 
 vosk_tpu_torch carries copies of host code it needs because nothing under
-vosk_tpu imports without jax: graph tables and transforms, the v4 record
-adapter, the native lattice binding, JSON output, endpoint rules, PCM
-conversion, the bench graph and the native model-dir format.  Each must
-give exactly what its source gives on the same input.
+vosk_tpu imports without jax: graph tables and transforms, grammar graphs
+(lexicon, topology, n-gram G), the v4 record adapter, the Python lattice
+and MBR, the native lattice binding, word-boundary realignment, the
+resampler, JSON output, endpoint rules, PCM conversion, the bench graph
+and scores, and the native model-dir format.  Each must give exactly what
+its source gives on the same input.
 """
 import dataclasses
 import json
@@ -14,24 +16,36 @@ import pytest
 import torch
 
 from vosk_tpu.graph import arrayopt as j_arrayopt
+from vosk_tpu.graph import builder as j_builder
 from vosk_tpu.graph import lattice as j_lattice
+from vosk_tpu.graph import lm as j_lm
+from vosk_tpu.graph import mbr as j_mbr
 from vosk_tpu.graph.fst import SymbolTable as JSymbols
 from vosk_tpu.io import native as j_native
 from vosk_tpu.io.wav import pcm16_bytes_to_float as j_pcm
+from vosk_tpu.ops import resample as j_resample
 from vosk_tpu.ops.viterbi import BatchViterbi as JViterbi, DecodeParams as JParams
 from vosk_tpu.runtime import endpoint as j_endpoint
 from vosk_tpu.runtime import jsonout as j_jsonout
 from vosk_tpu.runtime import native_lattice as j_native_lattice
+from vosk_tpu.runtime import wordalign as j_wordalign
 from vosk_tpu.utils import benchdata as j_bench
-from vosk_tpu_torch.graph import arrayopt, lattice
+from vosk_tpu_torch.graph import arrayopt, builder, lattice, lm, mbr
 from vosk_tpu_torch.graph.fst import SymbolTable
 from vosk_tpu_torch.io import native
 from vosk_tpu_torch.io.wav import pcm16_bytes_to_float
+from vosk_tpu_torch.ops import resample
 from vosk_tpu_torch.ops.viterbi import BatchViterbi, DecodeParams
-from vosk_tpu_torch.runtime import endpoint, jsonout, native_lattice
+from vosk_tpu_torch.runtime import endpoint, jsonout, native_lattice, wordalign
 from vosk_tpu_torch.utils import benchdata
 
 SIL = np.array([0, 1], np.int32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_library():
+    """The native lattice copies load core/libvosk_tpu_core.so."""
+    return native_lattice.build_library()
 
 
 def _graphs_equal(a, b):
@@ -184,3 +198,215 @@ def test_unported_model_parts_raise(tmp_path, extra):
     (tmp_path / extra).mkdir()
     with pytest.raises(NotImplementedError):
         native.load_model(tmp_path, device="cpu")
+
+
+def _lattices_equal(a, b):
+    assert a.num_nodes == b.num_nodes
+    assert a.final == b.final and a.node_frame == b.node_frame
+    assert a.out == b.out and a.in_ == b.in_
+    assert [dataclasses.astuple(x) for x in a.arcs] == [dataclasses.astuple(x) for x in b.arcs]
+
+
+def _split_records(recs, t):
+    """A [T, B, ...] record chunk cut at frame t: (head, tail)."""
+    return [{k: v[:t] for k, v in recs.items()}], [{k: v[t:] for k, v in recs.items()}]
+
+
+@pytest.fixture(scope="module")
+def lattices(decoded):
+    """Per channel, (port, source) lattice triples: the whole chunk, and
+    its two halves spliced at a fold boundary after frame 5."""
+    jd, jrecs, jf, td, trecs, tf = decoded
+    out = []
+    for ch in range(2):
+        pair = []
+        for mod, d, recs, fr in ((lattice, td, trecs, tf), (j_lattice, jd, jrecs, jf)):
+            whole, _ = mod.build_lattice(recs, fr, ch, d)
+            head, tail = _split_records(recs[0], 6)
+            st = np.asarray(head[0]["state"][-1, ch]).copy()
+            co = np.asarray(head[0]["f_cost"][-1, ch]).copy()
+            pre, slots = mod.build_lattice(
+                head, {"state": st[None], "cost": co[None]}, 0, d, use_final=False)
+            init_map = {}
+            post, _ = mod.build_lattice(tail, fr, ch, d, init_override=(st, co),
+                                        init_map_out=init_map)
+            spliced, nmap = mod.splice_lattices(pre, slots, post, init_map, frame_offset=6)
+            pair.append((whole, spliced, nmap))
+        out.append(pair)
+    return out
+
+
+def test_build_and_splice_lattice_copy(lattices):
+    for (tw, ts, tmap), (jw, js, jmap) in lattices:
+        _lattices_equal(tw, jw)
+        _lattices_equal(ts, js)
+        assert tmap == jmap
+        assert tw.arcs and any(a.olabel for a in ts.arcs)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_lattice_algebra_copy(lattices, which):
+    """prune, arc_posteriors, nbest, shortest, path_words and scale_graph
+    of the copy on the whole and the spliced lattice."""
+    for pair in lattices:
+        t, j = pair[0][which].copy(), pair[1][which].copy()
+        assert t.shortest() == j.shortest()
+        tmap, jmap = [], []
+        tp, jp = t.prune(2.0, node_map_out=tmap), j.prune(2.0, node_map_out=jmap)
+        _lattices_equal(tp, jp)
+        assert tmap == jmap
+        np.testing.assert_array_equal(tp.arc_posteriors(), jp.arc_posteriors())
+        np.testing.assert_array_equal(tp.arc_posteriors(0.5), jp.arc_posteriors(0.5))
+        tn, jn = tp.nbest(5), jp.nbest(5)
+        assert tn == jn and tn
+        assert [tp.path_words(p) for _, p in tn] == [jp.path_words(p) for _, p in jn]
+        _lattices_equal(tp.scale_graph(0.9), jp.scale_graph(0.9))
+
+
+def test_mbr_decode_copy(lattices):
+    for pair in lattices:
+        for which in (0, 1):
+            t = pair[0][which].copy().scale_graph(0.9).prune(6.0)
+            j = pair[1][which].copy().scale_graph(0.9).prune(6.0)
+            (tw, tbins), (jw, jbins) = mbr.mbr_decode(t), j_mbr.mbr_decode(j)
+            assert tw == jw and tw
+            assert ([dataclasses.astuple(x) for x in tbins]
+                    == [dataclasses.astuple(x) for x in jbins])
+
+
+def test_finish_lattice_matches_source(decoded, lattices):
+    """The port's Python finishing on a built lattice gives the source's
+    items (word-boundary realignment included)."""
+    from types import SimpleNamespace
+
+    from vosk_tpu.runtime.finishing import Finisher as JFinisher
+    from vosk_tpu_torch.runtime.finishing import Finisher
+
+    jd, _, _, td, _, _ = decoded
+    wb = {1: "singleton"}
+    tm = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=SIL,
+                         phone_of_pdf=np.arange(64) % 3, word_boundary=wb)
+    jm = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=SIL,
+                         phone_of_pdf=np.arange(64) % 3, word_boundary=wb,
+                         g_fst=None, rescore_lm=None, rnnlm=None)
+    for pair in lattices:
+        for which in (0, 1):
+            for n in (1, 3):
+                got = Finisher(tm, td).finish_lattice(pair[0][which].copy(), n)
+                want = JFinisher(jm, jd).finish_lattice(pair[1][which].copy(), n)
+                assert got == want and got
+
+
+@pytest.mark.parametrize("chunk", [1, 37, 1600])
+def test_resampler_copy(chunk):
+    """Chunked streaming equals one shot, and both equal the source."""
+    rng = np.random.default_rng(chunk)
+    wave = (rng.standard_normal(8000) * 1000).astype(np.float32)
+    for rin, rout in ((8000, 16000), (44100, 16000), (16000, 16000)):
+        r = resample.StreamingResampler(rin, rout)
+        parts = [r.process(wave[i: i + chunk]) for i in range(0, len(wave), chunk)]
+        streamed = np.concatenate(parts + [r.flush()])
+        one = resample.resample_offline(wave, rin, rout)
+        np.testing.assert_array_equal(streamed, one)
+        np.testing.assert_array_equal(one, j_resample.resample_offline(wave, rin, rout))
+
+
+def test_realign_items_copy():
+    phone_of_pdf = np.array([0, 1, 2, 3, 4, 5])
+    wb = {1: "begin", 2: "internal", 3: "end", 4: "singleton", 0: "nonword"}
+    items = [(7, 0, 3, 0.5), (8, 3, 9, 1.0)]
+    for pdfs in ([0, 1, 2, 3, 3, 4, 4, 0, 0], [1, 1, 3, 0, 4, 0, 0, 0, 0],
+                 [1, 2, 2, 3, 0, 0, 0, 0, 0], [4, 4, 1, 9, 3, 0, 0, 0, 0]):
+        for w in (wb, None, {}):
+            assert (wordalign.realign_items(items, pdfs, phone_of_pdf, w)
+                    == j_wordalign.realign_items(items, pdfs, phone_of_pdf, w))
+        assert (wordalign.word_spans(pdfs, phone_of_pdf, wb)
+                == j_wordalign.word_spans(pdfs, phone_of_pdf, wb))
+
+
+def _lexicon(mod_builder, mod_syms, label_last):
+    words = mod_syms(["<eps>", "a", "b", "c", "d"])
+    phones = mod_syms(["<eps>", "SIL", "p", "q", "r"])
+    prons = {1: [[2, 3]], 2: [[3]], 3: [[4, 2], [4]], 4: [[2, 3, 4]]}
+    return mod_builder.Lexicon(words=words, phones=phones, prons=prons,
+                               silence_phone=1, label_last=label_last)
+
+
+def _fsts_equal(a, b):
+    assert (a.arcs, a.final, a.start) == (b.arcs, b.final, b.start)
+
+
+@pytest.mark.parametrize("phrases", [["a b", "c d a"], ["a nosuch b"], ["d"]])
+def test_grammar_to_fst_copy(phrases):
+    find = SymbolTable(["<eps>", "a", "b", "c", "d"]).find
+    _fsts_equal(lm.grammar_to_fst(phrases, find), j_lm.grammar_to_fst(phrases, find))
+
+
+@pytest.mark.parametrize("label_last, states", [(False, 1), (True, 2)])
+def test_build_decoding_graph_copy(label_last, states):
+    from vosk_tpu.graph.fst import SymbolTable as JS
+
+    phrases = ["a b", "c d a", "b"]
+    find = SymbolTable(["<eps>", "a", "b", "c", "d"]).find
+    g, info = builder.build_decoding_graph(
+        _lexicon(builder, SymbolTable, label_last), lm.grammar_to_fst(phrases, find),
+        builder.Topology(states_per_phone=states))
+    jg, jinfo = j_builder.build_decoding_graph(
+        _lexicon(j_builder, JS, label_last), j_lm.grammar_to_fst(phrases, find),
+        j_builder.Topology(states_per_phone=states))
+    _graphs_equal(g, jg)
+    assert info == jinfo
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_make_plausible_loglikes_copy(small_graph, seed):
+    a = benchdata.make_plausible_loglikes(small_graph, 64, 3, 40, snr=2.0, seed=seed)
+    b = j_bench.make_plausible_loglikes(small_graph, 64, 3, 40, snr=2.0, seed=seed)
+    assert a.dtype == b.dtype and a.shape == (40, 3, 64)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_native_dir_with_lexicon_roundtrips_both_ways(tmp_path):
+    from vosk_tpu.graph.fst import SymbolTable as JS
+
+    m = benchdata.make_bench_model(num_states=500, num_pdfs=20, hidden=16,
+                                   max_active=100, num_words=10, device="cpu")
+    lex, topo = _lexicon(builder, SymbolTable, True), builder.Topology(2, 0.6)
+    native.save_model(tmp_path / "m", m.config, m.am_params, m.graph, lex.words,
+                      lex.phones, m.phone_of_pdf, m.silence_pdfs,
+                      lexicon=lex, topology=topo)
+    jm = j_native.load_model(tmp_path / "m")
+    assert jm.lexicon.prons == lex.prons
+    assert (jm.lexicon.silence_phone, jm.lexicon.silence_cost) == (1, lex.silence_cost)
+    assert dataclasses.asdict(jm.topology) == dataclasses.asdict(topo)
+    jlex = _lexicon(j_builder, JS, True)
+    j_native.save_model(tmp_path / "j", jm.config, jm.am_params, jm.graph, jm.words,
+                        jm.phones, jlex, jm.phone_of_pdf, jm.silence_pdfs,
+                        topology=j_builder.Topology(2, 0.6))
+    back = native.load_model(tmp_path / "j", device="cpu")
+    assert back.lexicon.prons == jlex.prons
+    assert dataclasses.asdict(back.topology) == dataclasses.asdict(topo)
+    assert back.find_word("c") == jm.find_word("c") == 3
+    assert native.load_any(tmp_path / "j", device="cpu").lexicon.prons == jlex.prons
+
+
+def test_stage_timers_and_logging_copy(capsys):
+    from vosk_tpu.utils import logging as j_logging
+    from vosk_tpu_torch.utils import logging as t_logging
+    from vosk_tpu_torch.utils.metrics import StageTimers
+
+    t = StageTimers()
+    with t.timer("decoder"):
+        pass
+    t.add_audio(0.2)
+    rep = t.report()
+    assert rep["stages"]["decoder"]["calls"] == 1 and rep["audio_seconds"] == 0.2
+    for level in (0, -1):
+        t_logging.set_log_level(level)
+        j_logging.set_log_level(level)
+        t_logging.log_warn("x")
+        tw = capsys.readouterr().err
+        j_logging.log_warn("x")
+        assert tw == capsys.readouterr().err
+    t_logging.set_log_level(0)
+    j_logging.set_log_level(0)

@@ -1,4 +1,5 @@
-"""vosk_tpu_torch on the card: the gather kernel and the decoder with it.
+"""vosk_tpu_torch on the card: the gather kernel, the decoder with it, and
+a streaming KaldiRecognizer decode.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -32,6 +33,8 @@ def _bits(x):
 @pytest.mark.parametrize("dtype,B,P,N", [
     (torch.float32, 32, 6008, 28000),   # acoustic lookup ll[b, pdf]
     (torch.int32, 32, 7000, 7000),      # trailing-silence lookup tsil[b, prev]
+    (torch.float32, 1, 6008, 28000),    # the streaming recognizer's B = 1 lookups
+    (torch.int32, 1, 7000, 7000),
     (torch.float32, 3, 300, 4097),      # ragged N, one past a block
     (torch.int32, 2, 20000, 999),       # row wider than the shared-memory stage
 ])
@@ -81,3 +84,42 @@ def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device):
     for k in kern:
         assert torch.equal(_bits(kern[k]), _bits(plain[k])), k
         assert torch.equal(_bits(kern[k]), _bits(cpu[k])), k
+
+
+def test_kaldi_recognizer_on_card(cuda_device, tmp_path):
+    """A streaming decode whose frontier and records stay on the card, with
+    the kernel launched, giving the same JSON as the same model on the CPU."""
+    import json
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.runtime import native_lattice
+    from vosk_tpu_torch.utils.benchdata import make_bench_model
+
+    native_lattice.build_library()
+    m = make_bench_model(num_states=20_000, num_pdfs=64, hidden=64, max_active=1024,
+                         num_words=500, compute_dtype="float32", seed=3, device="cpu")
+    native.save_model(tmp_path, m.config, m.am_params, m.graph, m.words, m.phones,
+                      m.phone_of_pdf, m.silence_pdfs)
+    pcm = (np.random.default_rng(0).standard_normal(3 * 16000) * 500).astype("<i2").tobytes()
+
+    def run(device):
+        rec = vosk_tpu_torch.KaldiRecognizer(vosk_tpu_torch.Model(str(tmp_path), device=device),
+                                             16000)
+        rec.SetWords(True)
+        outs, on_card = [], True
+        for i in range(0, len(pcm), 6400):
+            rec.AcceptWaveform(pcm[i: i + 6400])
+            outs.append(rec.PartialResult())
+            r = rec._rec
+            on_card = on_card and r._frontier["state"].is_cuda and r._records[-1]["pm"].is_cuda
+        outs.append(rec.FinalResult())
+        return outs, on_card
+
+    before = gather_rows.launches
+    outs, on_card = run("cuda")
+    assert on_card and gather_rows.launches > before
+    assert "text" in json.loads(outs[-1])
+    cpu_outs, _ = run("cpu")
+    assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
+        [json.loads(x).get("partial", json.loads(x).get("text")) for x in cpu_outs]

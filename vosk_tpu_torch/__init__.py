@@ -1,9 +1,13 @@
 """vosk_tpu_torch — the PyTorch/CUDA port of vosk_tpu.
 
-First slice: batch serving through `BatchModel` / `BatchRecognizer` (the
-reference's GPU batch pipeline) on native model directories, with the same
-method names and JSON results as `vosk_tpu`.  The JAX package stays the
-reference; this package imports torch and never jax.
+The reference binding's surface (python/vosk/__init__.py) on native model
+directories: streaming recognition through `Model` / `KaldiRecognizer`,
+batch serving through `BatchModel` / `BatchRecognizer` (the reference's GPU
+batch pipeline), `SetLogLevel`, `GpuInit` and `GpuThreadInit`, with the
+same method names and JSON results as `vosk_tpu`.  Models live on
+`device` ("cuda" by default).  Not ported yet: `SpkModel` (ROADMAP A11)
+and the model-zoo download.  The JAX package stays the reference; this
+package imports torch and never jax.
 """
 from __future__ import annotations
 
@@ -38,6 +42,100 @@ def _resolve_model_path(model_path=None, model_name=None, lang=None):
     raise FileNotFoundError(
         f"model {what} does not exist (set VOSK_MODEL_PATH or pass model_path)"
     )
+
+
+class Model:
+    """Static recognition model, shareable across recognizers
+    (vosk_api.h:24-27), with its tensors on `device`."""
+
+    def __init__(self, model_path=None, model_name=None, lang=None,
+                 device="cuda"):
+        from .io import native
+
+        path = _resolve_model_path(model_path, model_name, lang)
+        self._model = native.load_any(path, device=device)
+
+    def vosk_model_find_word(self, word: str) -> int:
+        return self._model.find_word(word)
+
+    def FindWord(self, word: str) -> int:
+        return self._model.find_word(word)
+
+
+class KaldiRecognizer:
+    """Streaming recognizer with the reference binding's API
+    (python/vosk/__init__.py:134-183): constructors (model, rate) and
+    (model, rate, grammar_json).  The (model, rate, spk_model) form raises:
+    speaker models are not ported yet."""
+
+    def __init__(self, *args):
+        from .runtime.recognizer import Recognizer
+
+        if len(args) == 2:
+            model, rate = args
+            self._rec = Recognizer(model._model, float(rate))
+        elif len(args) == 3 and isinstance(args[2], str):
+            model, rate, grammar = args
+            self._rec = Recognizer(model._model, float(rate), grammar=grammar)
+        elif len(args) == 3:
+            raise NotImplementedError(
+                "speaker identification (SpkModel) is not ported yet")
+        else:
+            raise TypeError("Unknown arguments")
+
+    def SetMaxAlternatives(self, max_alternatives: int) -> None:
+        self._rec.set_max_alternatives(max_alternatives)
+
+    def SetWords(self, enable_words: bool) -> None:
+        self._rec.set_words(enable_words)
+
+    def SetPartialWords(self, enable_partial_words: bool) -> None:
+        self._rec.set_partial_words(enable_partial_words)
+
+    def SetNLSML(self, enable_nlsml: bool) -> None:
+        self._rec.set_nlsml(enable_nlsml)
+
+    def AcceptWaveform(self, data) -> int:
+        try:
+            return 1 if self._rec.accept_waveform(data) else 0
+        except Exception as e:
+            raise Exception("Failed to process waveform") from e
+
+    def Result(self) -> str:
+        return self._rec.result()
+
+    def PartialResult(self) -> str:
+        return self._rec.partial_result()
+
+    def FinalResult(self) -> str:
+        return self._rec.final_result()
+
+    def Reset(self) -> None:
+        self._rec.reset()
+
+    def GetMetrics(self) -> dict:
+        """Per-stage host-time report (features / acoustic_model / decoder /
+        fold / finishing seconds, xRT)."""
+        return self._rec.get_metrics()
+
+
+def SetLogLevel(level: int) -> None:
+    """vosk_set_log_level parity (vosk_api.h:287-294)."""
+    from .utils.logging import set_log_level
+
+    set_log_level(level)
+
+
+def GpuInit() -> None:
+    """vosk_gpu_init parity (vosk_api.h:296-301): initialise CUDA now;
+    raises without a card."""
+    import torch
+
+    torch.cuda.init()
+
+
+def GpuThreadInit() -> None:
+    """No-op: torch keeps per-thread CUDA state itself (vosk_api.h:303-308)."""
 
 
 from .runtime.batch import BatchModel, BatchRecognizer  # noqa: E402,F401

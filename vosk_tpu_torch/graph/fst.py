@@ -1,8 +1,9 @@
-"""Flattened decoding-graph tables and symbol tables.
+"""Weighted FSTs, the flattened decoding-graph tables and symbol tables.
 
-Copy of `DecodingGraph` and `SymbolTable` from `vosk_tpu/graph/fst.py`
-(numpy only), kept in the port because nothing under `vosk_tpu` imports
-without jax.  tests/test_torch_copies.py holds it to its source.
+Copy of `vosk_tpu/graph/fst.py` (numpy only: `StdFst`, `DecodingGraph`,
+`flatten_fst`, `SymbolTable`), kept in the port because nothing under
+`vosk_tpu` imports without jax.  tests/test_torch_copies.py holds it to its
+source.
 
 Semiring: tropical (costs = -log prob, min-plus), matching OpenFST StdArc.
 """
@@ -14,7 +15,96 @@ from typing import Iterable, Optional
 import numpy as np
 
 INF = np.float32(np.inf)
+NO_STATE = -1
 EPSILON = 0
+
+
+class StdFst:
+    """Mutable vector FST over the tropical semiring (host-side).
+
+    Arc fields mirror OpenFST StdArc: ilabel, olabel, weight (cost), nextstate.
+    """
+
+    def __init__(self):
+        self.arcs: list[list[tuple[int, int, float, int]]] = []
+        self.final: list[float] = []
+        self.start: int = NO_STATE
+
+    def add_state(self) -> int:
+        self.arcs.append([])
+        self.final.append(float("inf"))
+        return len(self.arcs) - 1
+
+    def add_states(self, n: int) -> None:
+        for _ in range(n):
+            self.add_state()
+
+    def set_start(self, s: int) -> None:
+        self.start = s
+
+    def set_final(self, s: int, cost: float = 0.0) -> None:
+        self.final[s] = cost
+
+    def add_arc(self, s: int, ilabel: int, olabel: int, weight: float, nextstate: int) -> None:
+        self.arcs[s].append((ilabel, olabel, float(weight), nextstate))
+
+    @property
+    def num_states(self) -> int:
+        return len(self.arcs)
+
+    @property
+    def num_arcs(self) -> int:
+        return sum(len(a) for a in self.arcs)
+
+    def arcsort(self) -> None:
+        for a in self.arcs:
+            a.sort(key=lambda arc: (arc[0], arc[1], arc[3]))
+
+    def connect(self) -> None:
+        """Remove states not on a successful path (OpenFST Connect)."""
+        n = self.num_states
+        if self.start == NO_STATE or n == 0:
+            return
+        # forward reachability
+        fwd = np.zeros(n, bool)
+        stack = [self.start]
+        fwd[self.start] = True
+        while stack:
+            s = stack.pop()
+            for _, _, _, ns in self.arcs[s]:
+                if not fwd[ns]:
+                    fwd[ns] = True
+                    stack.append(ns)
+        # backward reachability from finals
+        radj: list[list[int]] = [[] for _ in range(n)]
+        for s in range(n):
+            for _, _, _, ns in self.arcs[s]:
+                radj[ns].append(s)
+        bwd = np.zeros(n, bool)
+        stack = [s for s in range(n) if self.final[s] != float("inf")]
+        for s in stack:
+            bwd[s] = True
+        while stack:
+            s = stack.pop()
+            for p in radj[s]:
+                if not bwd[p]:
+                    bwd[p] = True
+                    stack.append(p)
+        keep = fwd & bwd
+        remap = -np.ones(n, np.int64)
+        remap[keep] = np.arange(keep.sum())
+        new_arcs = []
+        new_final = []
+        for s in range(n):
+            if not keep[s]:
+                continue
+            new_arcs.append(
+                [(il, ol, w, int(remap[ns])) for il, ol, w, ns in self.arcs[s] if keep[ns]]
+            )
+            new_final.append(self.final[s])
+        self.arcs = new_arcs
+        self.final = new_final
+        self.start = int(remap[self.start]) if keep[self.start] else NO_STATE
 
 
 @dataclasses.dataclass
@@ -52,6 +142,95 @@ class DecodingGraph:
     @property
     def num_eps_arcs(self) -> int:
         return len(self.eps_next)
+
+
+def _eps_closure_depth(fst: StdFst, cap: int = 64) -> int:
+    """Longest acyclic epsilon out-chain (capped).  With weighted epsilon
+    cycles the closure converges anyway; the decoder also re-checks
+    convergence, this is just the static iteration bound.
+
+    Hitting the cap is LOUD: a capped depth means the decoder's per-frame
+    closure rounds cannot reach the deepest eps chains and paths would be
+    silently lost (r5 finding: a 119-deep chain from the old linear
+    split_high_degree broke 600-word decodes)."""
+    n = fst.num_states
+    eps_adj: list[list[int]] = [[] for _ in range(n)]
+    for s in range(n):
+        for il, _, _, ns in fst.arcs[s]:
+            if il == EPSILON:
+                eps_adj[s].append(ns)
+    depth = np.zeros(n, np.int32)
+    # iterate to fixpoint, capped
+    for _ in range(cap):
+        changed = False
+        for s in range(n):
+            for ns in eps_adj[s]:
+                if depth[s] + 1 > depth[ns] and depth[s] + 1 <= cap:
+                    depth[ns] = depth[s] + 1
+                    changed = True
+        if not changed:
+            break
+    else:
+        import warnings
+
+        warnings.warn(
+            f"epsilon-closure depth exceeds the cap ({cap}); the decoder "
+            "runs only that many closure rounds per frame and may lose "
+            "paths — restructure the graph (split_high_degree now builds "
+            "log-depth trees) or raise eps_depth_cap",
+            stacklevel=2,
+        )
+    return int(depth.max()) if n else 0
+
+
+def flatten_fst(
+    fst: StdFst,
+    ilabel_to_pdf: Optional[np.ndarray] = None,
+    eps_depth_cap: int = 64,
+) -> DecodingGraph:
+    """Flatten a host FST into the decoder's CSR tables.
+
+    ilabel_to_pdf: int32 map from arc ilabel to acoustic-output row (pdf).
+    Default: pdf = ilabel - 1 (native graphs label arcs 1..num_pdfs).
+    """
+    n = fst.num_states
+    em_off = np.zeros(n + 1, np.int32)
+    eps_off = np.zeros(n + 1, np.int32)
+    em_rows, eps_rows = [], []
+    max_em, max_eps = 0, 0
+    for s in range(n):
+        ne, nn = 0, 0
+        for il, ol, w, ns in fst.arcs[s]:
+            if il == EPSILON:
+                eps_rows.append((ol, w, ns))
+                nn += 1
+            else:
+                pdf = int(ilabel_to_pdf[il]) if ilabel_to_pdf is not None else il - 1
+                em_rows.append((pdf, ol, w, ns))
+                ne += 1
+        em_off[s + 1] = em_off[s] + ne
+        eps_off[s + 1] = eps_off[s] + nn
+        max_em, max_eps = max(max_em, ne), max(max_eps, nn)
+
+    em = np.array(em_rows, dtype=np.float64).reshape(-1, 4)
+    ep = np.array(eps_rows, dtype=np.float64).reshape(-1, 3)
+    return DecodingGraph(
+        num_states=n,
+        start=fst.start,
+        em_off=em_off,
+        em_pdf=em[:, 0].astype(np.int32),
+        em_olabel=em[:, 1].astype(np.int32),
+        em_w=em[:, 2].astype(np.float32),
+        em_next=em[:, 3].astype(np.int32),
+        eps_off=eps_off,
+        eps_olabel=ep[:, 0].astype(np.int32),
+        eps_w=ep[:, 1].astype(np.float32),
+        eps_next=ep[:, 2].astype(np.int32),
+        final_cost=np.array(fst.final, np.float32),
+        eps_depth=_eps_closure_depth(fst, eps_depth_cap),
+        max_em_out=max_em,
+        max_eps_out=max_eps,
+    )
 
 
 class SymbolTable:

@@ -1,15 +1,25 @@
-"""Host-side adapter from v4 decoder records to the lattice record schema.
+"""Host-side lattice finishing: build a word lattice from the decoder's
+records, prune, compute arc posteriors (forward-backward), extract n-best.
 
-Copy of `convert_v4_records` from `vosk_tpu/graph/lattice.py`.  The port
-carries no Python lattice (`build_lattice`, MBR): the native library in
-`core/` builds and finishes lattices (runtime/native_lattice.py).
-tests/test_torch_copies.py holds this copy to its source.
+Copy of `vosk_tpu/graph/lattice.py` (numpy only) without LM rescoring
+(`rescore_lattice`, ROADMAP A15): `LatArc`, `Lattice`, `convert_v4_records`,
+`build_lattice` and `splice_lattices`.  Records and frontiers may be torch
+tensors on any device; `to_host` pulls what the host reads.  The native
+library in `core/` builds and finishes the same lattices faster
+(runtime/native_lattice.py); this Python lattice serves the streaming
+recognizer's windowed (folded) lattices and the fallbacks of
+runtime/finishing.py, as in the source.  tests/test_torch_copies.py holds
+it to its source.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+NEG_INF = float("-inf")
 
 
 def to_host(x) -> np.ndarray:
@@ -18,6 +28,268 @@ def to_host(x) -> np.ndarray:
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@dataclasses.dataclass
+class LatArc:
+    src: int
+    dst: int
+    olabel: int
+    graph_cost: float
+    acoustic_cost: float
+    is_frame: bool  # consumed an acoustic frame (em level arc)
+    pdf: int = -1
+
+    @property
+    def cost(self) -> float:
+        return self.graph_cost + self.acoustic_cost
+
+
+class Lattice:
+    """DAG over nodes 0..N-1 (0-cost source node 0; virtual super-final is
+    implicit via node final costs)."""
+
+    def __init__(self):
+        self.arcs: List[LatArc] = []
+        self.out: List[List[int]] = [[]]
+        self.in_: List[List[int]] = [[]]
+        self.final: List[float] = [math.inf]
+        self.node_frame: List[int] = [0]  # decoded-frame index of node
+
+    def add_node(self, frame: int) -> int:
+        self.out.append([])
+        self.in_.append([])
+        self.final.append(math.inf)
+        self.node_frame.append(frame)
+        return len(self.out) - 1
+
+    def add_arc(self, arc: LatArc) -> None:
+        i = len(self.arcs)
+        self.arcs.append(arc)
+        self.out[arc.src].append(i)
+        self.in_[arc.dst].append(i)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.out)
+
+    # ---------------------------------------------------------- traversal
+
+    def topo_order(self) -> List[int]:
+        """Nodes are created in topological order by construction."""
+        return list(range(self.num_nodes))
+
+    def shortest(self) -> Tuple[float, List[int]]:
+        """(best total cost incl. final, best arc path)."""
+        n = self.num_nodes
+        d = np.full(n, np.inf)
+        back = np.full(n, -1, np.int64)
+        d[0] = 0.0
+        for u in range(n):
+            if not np.isfinite(d[u]):
+                continue
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                nd = d[u] + a.cost
+                if nd < d[a.dst]:
+                    d[a.dst] = nd
+                    back[a.dst] = ai
+        tot = d + np.asarray(self.final)
+        if not np.isfinite(tot).any():
+            return math.inf, []
+        v = int(np.argmin(tot))
+        best = float(tot[v])
+        path = []
+        while back[v] >= 0:
+            path.append(int(back[v]))
+            v = self.arcs[int(back[v])].src
+        path.reverse()
+        return best, path
+
+    # ------------------------------------------------------------ pruning
+
+    def copy(self) -> "Lattice":
+        out = Lattice()
+        out.arcs = [
+            LatArc(a.src, a.dst, a.olabel, a.graph_cost, a.acoustic_cost,
+                   a.is_frame, a.pdf)
+            for a in self.arcs
+        ]
+        out.out = [list(x) for x in self.out]
+        out.in_ = [list(x) for x in self.in_]
+        out.final = list(self.final)
+        out.node_frame = list(self.node_frame)
+        return out
+
+    def prune(self, beam: float, node_map_out=None) -> "Lattice":
+        """Keep arcs on paths within `beam` of the best path (Kaldi
+        lattice-beam semantics).  node_map_out (optional list) receives the
+        old->new node id mapping (-1 = dropped)."""
+        n = self.num_nodes
+        fwd = np.full(n, np.inf)
+        fwd[0] = 0.0
+        for u in range(n):
+            if not np.isfinite(fwd[u]):
+                continue
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                fwd[a.dst] = min(fwd[a.dst], fwd[u] + a.cost)
+        bwd = np.asarray(self.final, float).copy()
+        for u in range(n - 1, -1, -1):
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                bwd[u] = min(bwd[u], a.cost + bwd[a.dst])
+        best = float(np.min(fwd + bwd))
+        if not np.isfinite(best):
+            if node_map_out is not None:
+                node_map_out[:] = list(range(n))
+            return self
+        keep_arc = [
+            np.isfinite(fwd[a.src])
+            and np.isfinite(bwd[a.dst])
+            and fwd[a.src] + a.cost + bwd[a.dst] <= best + beam
+            for a in self.arcs
+        ]
+        # rebuild with remapped nodes
+        keep_node = np.zeros(n, bool)
+        keep_node[0] = True
+        for a, k in zip(self.arcs, keep_arc):
+            if k:
+                keep_node[a.src] = keep_node[a.dst] = True
+        for u in range(n):
+            if np.isfinite(self.final[u]) and np.isfinite(fwd[u]) and fwd[u] + self.final[u] <= best + beam:
+                keep_node[u] = True
+        remap = -np.ones(n, np.int64)
+        out = Lattice()
+        out.final[0] = self.final[0]
+        out.node_frame[0] = self.node_frame[0]
+        remap[0] = 0
+        for u in range(1, n):
+            if keep_node[u]:
+                remap[u] = out.add_node(self.node_frame[u])
+                out.final[int(remap[u])] = self.final[u]
+        for a, k in zip(self.arcs, keep_arc):
+            if k and remap[a.src] >= 0 and remap[a.dst] >= 0:
+                out.add_arc(
+                    LatArc(
+                        int(remap[a.src]),
+                        int(remap[a.dst]),
+                        a.olabel,
+                        a.graph_cost,
+                        a.acoustic_cost,
+                        a.is_frame,
+                        a.pdf,
+                    )
+                )
+        if node_map_out is not None:
+            node_map_out[:] = [int(x) for x in remap]
+        return out
+
+    def scale_graph(self, scale: float) -> "Lattice":
+        """Scale graph costs in place (reference applies
+        GraphLatticeScale(0.9) before result extraction,
+        recognizer.cc:719)."""
+        for a in self.arcs:
+            a.graph_cost *= scale
+        return self
+
+    # --------------------------------------------------------- posteriors
+
+    def arc_posteriors(self, scale: float = 1.0) -> np.ndarray:
+        """Log-domain forward-backward; returns per-arc posterior
+        probability."""
+
+        def logsumexp2(a, b):
+            if a == NEG_INF:
+                return b
+            if b == NEG_INF:
+                return a
+            m = max(a, b)
+            return m + math.log(math.exp(a - m) + math.exp(b - m))
+
+        n = self.num_nodes
+        alpha = [NEG_INF] * n
+        alpha[0] = 0.0
+        for u in range(n):
+            if alpha[u] == NEG_INF:
+                continue
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                alpha[a.dst] = logsumexp2(alpha[a.dst], alpha[u] - scale * a.cost)
+        beta = [NEG_INF] * n
+        for u in range(n):
+            if np.isfinite(self.final[u]):
+                beta[u] = -scale * self.final[u]
+        for u in range(n - 1, -1, -1):
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                beta[u] = logsumexp2(beta[u], -scale * a.cost + beta[a.dst])
+        total = NEG_INF
+        for u in range(n):
+            if np.isfinite(self.final[u]):
+                total = logsumexp2(total, alpha[u] - scale * self.final[u])
+        post = np.zeros(len(self.arcs))
+        for i, a in enumerate(self.arcs):
+            lp = alpha[a.src] - scale * a.cost + beta[a.dst] - total
+            post[i] = math.exp(min(lp, 0.0))
+        return post
+
+    # -------------------------------------------------------------- nbest
+
+    def nbest(self, n: int) -> List[Tuple[float, List[int]]]:
+        """Exact n shortest paths (A* with exact backward heuristic).
+        Returns [(total_cost, arc path)]."""
+        import heapq
+
+        N = self.num_nodes
+        bwd = np.asarray(self.final, float).copy()
+        for u in range(N - 1, -1, -1):
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                bwd[u] = min(bwd[u], a.cost + bwd[a.dst])
+        if not np.isfinite(bwd[0]):
+            return []
+        results = []
+        # heap entries: (priority, seq, node, cost_so_far, path)
+        cnt = 0
+        heap = [(float(bwd[0]), cnt, 0, 0.0, [])]
+        while heap and len(results) < n:
+            _, _, u, cost, path = heapq.heappop(heap)
+            if np.isfinite(self.final[u]) and (
+                not self.out[u]
+                or True  # final nodes can also continue; emit this completion
+            ):
+                results.append((cost + float(self.final[u]), path))
+                # continue expanding for longer paths through u as well
+            for ai in self.out[u]:
+                a = self.arcs[ai]
+                if not np.isfinite(bwd[a.dst]):
+                    continue
+                cnt += 1
+                heapq.heappush(
+                    heap,
+                    (cost + a.cost + float(bwd[a.dst]), cnt, a.dst, cost + a.cost, path + [ai]),
+                )
+        results.sort(key=lambda x: x[0])
+        return results[:n]
+
+    # ------------------------------------------------------------- words
+
+    def path_words(self, path: List[int]) -> List[Tuple[int, int, int]]:
+        """(word, start_frame, end_frame) per word on an arc path; a word's
+        span runs from its arc's frame to the next word's frame (or path
+        end), with trailing non-frame arcs excluded."""
+        out = []
+        for i, ai in enumerate(path):
+            a = self.arcs[ai]
+            if a.olabel != 0:
+                out.append((a.olabel, self.node_frame[a.src], ai))
+        words = []
+        T_end = self.node_frame[self.arcs[path[-1]].dst] if path else 0
+        for j, (w, f0, ai) in enumerate(out):
+            f1 = out[j + 1][1] if j + 1 < len(out) else T_end
+            words.append((w, f0, max(f1, f0 + 1)))
+        return words
 
 
 def convert_v4_records(
@@ -99,3 +371,225 @@ def convert_v4_records(
             }
         )
     return out
+
+
+def build_lattice(
+    records: List[dict],
+    frontier,
+    channel: int,
+    dec,
+    use_final: bool = True,
+    node_map_out: Optional[dict] = None,
+    init_override=None,
+    init_map_out: Optional[dict] = None,
+) -> Tuple[Lattice, Dict[int, int]]:
+    """Assemble the lattice for one channel from decoder records.
+
+    dec: the BatchViterbi (for arc tables + initial frontier).
+    init_override: optional (states [K], costs [K]) anchoring level 0 at a
+    mid-stream fold boundary instead of the utterance start (bounded-memory
+    streaming: older records were folded into a frozen best-path prefix).
+    Returns (lattice, final_slot->node map is internal; lattice final costs
+    already set).
+    """
+    # the frontier stays batched [B, K] even when v4 records are converted
+    # to a single-channel view below — final costs must keep reading the
+    # ORIGINAL channel (a ch>0 stream would otherwise get stream 0's finals)
+    fr_channel = channel
+    if records and "pm" in records[0]:
+        records = convert_v4_records(
+            dec, records, channel,
+            init_states=None if init_override is None else init_override[0],
+        )
+        channel = 0
+    graph = dec.graph
+    em_olabel, em_w = graph.em_olabel, graph.em_w
+    em_pdf = graph.em_pdf
+    eps_olabel, eps_w = graph.eps_olabel, graph.eps_w
+    K = dec.K
+
+    lat = Lattice()
+    # level 0: initial frontier; node per slot
+    if init_override is not None:
+        init_states, init_costs = init_override
+        init_prefixes = [[] for _ in range(len(init_states))]
+    else:
+        init_states = dec._init_states
+        init_costs = dec._init_costs
+        init_prefixes = dec._init_prefixes
+    # padded-layout (v3) em-level lat_arc stores the in-row arc slot m;
+    # the dense arc id is reconstructed as prev_state * M + m
+    lat_arc_is_m = getattr(dec, "lat_arc_is_m", False)
+    prev_nodes: Dict[int, int] = {}  # slot -> node id
+    prev_costs: Dict[int, float] = {}
+    prev_states: Dict[int, int] = {}  # slot -> graph state (for lat_arc_is_m)
+    for k in np.where(np.isfinite(init_costs))[0]:
+        k = int(k)
+        # connect source to initial slots with their closure cost; if the
+        # closure emitted words (rare), chain one arc per prefix word.
+        # Nodes MUST be created in topological order (chain before slot node).
+        prefix = init_prefixes[k]
+        src = 0
+        for w in prefix[:-1]:
+            mid = lat.add_node(0)
+            lat.add_arc(LatArc(src, mid, w, 0.0, 0.0, False))
+            src = mid
+        node = lat.add_node(0)
+        prev_nodes[k] = node
+        prev_costs[k] = float(init_costs[k])
+        prev_states[k] = int(init_states[k])
+        if init_map_out is not None:
+            init_map_out[k] = node
+        lat.add_arc(
+            LatArc(
+                src,
+                node,
+                prefix[-1] if prefix else 0,
+                float(init_costs[k]),
+                0.0,
+                False,
+            )
+        )
+
+    frame_idx = 0
+    for rec in records:
+        f_state = np.asarray(rec["f_state"][channel])  # [T, L, K]
+        f_cost = np.asarray(rec["f_cost"][channel])
+        lat_ns = np.asarray(rec["lat_ns"][channel])  # [T, L, R]
+        lat_prev = np.asarray(rec["lat_prev"][channel])
+        lat_arc = np.asarray(rec["lat_arc"][channel])
+        lat_cost = np.asarray(rec["lat_cost"][channel])
+        pdf_rec = np.asarray(rec["pdf"][channel])
+        T, L, _ = f_state.shape
+        for t in range(T):
+            is_real = (pdf_rec[t, 0] >= 0).any()
+            for lvl in range(L):
+                # build nodes of this level
+                states = f_state[t, lvl]
+                costs = f_cost[t, lvl]
+                state_slot: Dict[int, int] = {}
+                nodes: Dict[int, int] = {}
+                ncosts: Dict[int, float] = {}
+                nstates: Dict[int, int] = {}
+                cur_frame = frame_idx + (1 if (is_real and lvl >= 0) else 0)
+                for k in np.where(np.isfinite(costs) & (states != dec.S))[0]:
+                    k = int(k)
+                    nodes[k] = lat.add_node(cur_frame)
+                    ncosts[k] = float(costs[k])
+                    nstates[k] = int(states[k])
+                    state_slot.setdefault(int(states[k]), k)
+                    if node_map_out is not None:
+                        node_map_out[(len(node_map_out) // 10**9, t, lvl, k)] = nodes[k]
+                # arcs
+                for r in np.where(
+                    np.isfinite(lat_cost[t, lvl]) & (lat_ns[t, lvl] != dec.S)
+                )[0]:
+                    r = int(r)
+                    ns = int(lat_ns[t, lvl, r])
+                    slot = state_slot.get(ns)
+                    if slot is None:
+                        continue
+                    pslot = int(lat_prev[t, lvl, r])
+                    if pslot < 0 or pslot not in prev_nodes:
+                        continue
+                    total = float(lat_cost[t, lvl, r])
+                    delta = total - prev_costs[pslot]
+                    ai = int(lat_arc[t, lvl, r])
+                    if lvl == 0 and is_real:
+                        if lat_arc_is_m and ai >= 0:
+                            ai = prev_states[pslot] * dec.M + ai
+                        gw, ol, pdf = dec.host_em_arc(ai) if ai >= 0 else (0.0, 0, -1)
+                        lat.add_arc(
+                            LatArc(
+                                prev_nodes[pslot],
+                                nodes[slot],
+                                ol,
+                                gw,
+                                delta - gw,
+                                True,
+                                pdf,
+                            )
+                        )
+                    else:
+                        if ai >= 0:
+                            lat.add_arc(
+                                LatArc(
+                                    prev_nodes[pslot],
+                                    nodes[slot],
+                                    int(eps_olabel[ai]),
+                                    float(eps_w[ai]),
+                                    delta - float(eps_w[ai]),
+                                    False,
+                                )
+                            )
+                        else:  # carry
+                            lat.add_arc(
+                                LatArc(prev_nodes[pslot], nodes[slot], 0, delta, 0.0, False)
+                            )
+                prev_nodes, prev_costs, prev_states = nodes, ncosts, nstates
+            if is_real:
+                frame_idx += 1
+
+    # final costs on last-level nodes
+    final_cost = np.asarray(dec.final_cost)
+    f_state_last = to_host(frontier["state"][fr_channel])
+    any_final = False
+    for k, node in prev_nodes.items():
+        st = int(f_state_last[k])
+        fc = float(final_cost[st]) if st <= dec.S else math.inf
+        if use_final and np.isfinite(fc):
+            lat.final[node] = fc
+            any_final = True
+    if not (use_final and any_final):
+        for k, node in prev_nodes.items():
+            lat.final[node] = 0.0
+    return lat, prev_nodes
+
+
+def splice_lattices(
+    pre: Lattice,
+    pre_slot_nodes: Dict[int, int],
+    post: Lattice,
+    post_init_nodes: Dict[int, int],
+    frame_offset: int,
+) -> Tuple[Lattice, Dict[int, int]]:
+    """Concatenate `post` (a window lattice built with init_override at a
+    fold boundary) onto `pre` IN PLACE.
+
+    The windowed-lattice alternative to freezing the folded prefix to one
+    best path (the reference keeps alternatives for the whole utterance via
+    incremental determinization, model.h:24): post's level-0 anchor nodes
+    (post_init_nodes: slot -> post node) attach to pre's boundary nodes
+    (pre_slot_nodes: slot -> pre node) with zero-cost arcs — pre's path
+    cost to a boundary node already equals the absolute cost init_override
+    carried, so post's absolute-cost source arcs are dropped, not added.
+
+    pre's pseudo-finals (0.0 markers from use_final=False builds) are
+    cleared; post's finals and node frames (shifted by frame_offset) carry
+    over.  Returns (pre, node_map) with node_map[post_id] -> new id.
+    """
+    for i in range(len(pre.final)):
+        pre.final[i] = math.inf
+    nmap = {0: 0}
+    slot_of_node = {n: k for k, n in post_init_nodes.items()}
+    for u in range(1, post.num_nodes):
+        nmap[u] = pre.add_node(post.node_frame[u] + frame_offset)
+        if math.isfinite(post.final[u]):
+            pre.final[nmap[u]] = post.final[u]
+    for a in post.arcs:
+        if a.src == 0 and a.dst in slot_of_node:
+            k = slot_of_node[a.dst]
+            pn = pre_slot_nodes.get(k)
+            if pn is None:
+                continue  # boundary slot pruned out of pre: unreachable
+            pre.add_arc(
+                LatArc(pn, nmap[a.dst], a.olabel, 0.0, 0.0, False)
+            )
+        else:
+            pre.add_arc(
+                LatArc(
+                    nmap[a.src], nmap[a.dst], a.olabel,
+                    a.graph_cost, a.acoustic_cost, a.is_frame, a.pdf,
+                )
+            )
+    return pre, nmap

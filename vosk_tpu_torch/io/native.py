@@ -1,26 +1,30 @@
 """Native model-directory format (JSON config + npz arrays).
 
 Port of `vosk_tpu/io/native.py` (`ModelConfig`, `EndpointRule`,
-`save_model`, `load_model`): the directory layout is the same, so a model
-saved by either package loads in both.  `NativeModel`'s factories return
-the port's torch objects on the model's device.
+`save_model`, `load_model`, `load_any`): the directory layout is the
+same, so a model saved by either package loads in both, lexicon and
+topology included.  `NativeModel`'s factories return the port's torch
+objects on the model's device.
 
-The port serves the batch path of native directories only.  A directory
-that asks for a part not ported yet raises instead of decoding without it:
-online pitch, an i-vector extractor (`ivector/`), LM rescoring
-(`rescore.arpa`, `rnnlm/`), or a Kaldi layout.  The graph LM `g.npz` is
-read only for rescoring, so it is left unread.
+The port serves native directories only.  A directory that asks for a part
+not ported yet raises instead of decoding without it: online pitch, an
+i-vector extractor (`ivector/`), LM rescoring (`rescore.arpa`, `rnnlm/`),
+or a Kaldi layout.  The graph LM `g.npz` is read only for rescoring, so it
+is left unread.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..graph.builder import Lexicon, Topology
 from ..graph.fst import DecodingGraph, SymbolTable
 from ..models.tdnnf import TdnnfConfig
 from ..ops import features as F
@@ -32,6 +36,9 @@ _UNPORTED = {
     "rnnlm": "RNNLM rescoring",
     "ivector": "online i-vectors",
 }
+# runtime-grammar decoders kept per model, least recently used dropped first
+# (the source's cache has no bound)
+GRAMMAR_DECODERS = 8
 
 
 @dataclasses.dataclass
@@ -73,8 +80,8 @@ class ModelConfig:
 
 
 class NativeModel:
-    """Loaded model: everything BatchPipeline needs, with factories that
-    build the torch pipeline stages on `device`."""
+    """Loaded model: everything Recognizer/BatchPipeline need, with
+    factories that build the torch pipeline stages on `device`."""
 
     def __init__(
         self,
@@ -86,6 +93,8 @@ class NativeModel:
         phone_of_pdf: np.ndarray,
         silence_pdfs: np.ndarray,
         device="cuda",
+        lexicon: Optional[Lexicon] = None,
+        topology: Optional[Topology] = None,
     ):
         if config.pitch_opts is not None:
             raise NotImplementedError(
@@ -102,27 +111,51 @@ class NativeModel:
         self.phones = phones
         self.phone_of_pdf = phone_of_pdf
         self.silence_pdfs = silence_pdfs
+        self.lexicon = lexicon
+        self.topology = topology if topology is not None else Topology()
+        self.word_boundary = None  # phone -> position map (Kaldi layouts only)
         self._decoder = None
+        self._grammar_decoders: "OrderedDict[str, object]" = OrderedDict()
+        self._decoder_lock = threading.Lock()
 
-    def shared_decoder(self):
-        """The model's one BatchViterbi (load-time graph transform + device
-        tables), built on first use: the same v4 step with packed16 graph
-        weights and lattice records that the JAX package's
-        `NativeModel.shared_decoder` builds."""
-        if self._decoder is None:
-            from ..ops.viterbi import BatchViterbi, DecodeParams
+    def _new_decoder(self, graph):
+        from ..ops.viterbi import BatchViterbi, DecodeParams
 
-            c = self.config
-            self._decoder = BatchViterbi(
-                self.graph,
-                DecodeParams(beam=c.beam, max_active=c.max_active,
-                             lattice_beam=c.lattice_beam,
-                             acoustic_scale=c.acoustic_scale),
-                silence_pdfs=self.silence_pdfs,
-                optimize_graph=True,
-                device=self.device,
-            )
-        return self._decoder
+        c = self.config
+        return BatchViterbi(
+            graph,
+            DecodeParams(beam=c.beam, max_active=c.max_active,
+                         lattice_beam=c.lattice_beam,
+                         acoustic_scale=c.acoustic_scale),
+            silence_pdfs=self.silence_pdfs,
+            optimize_graph=True,
+            device=self.device,
+        )
+
+    def shared_decoder(self, graph=None, cache_key=None):
+        """A BatchViterbi shared by the model's recognizers (load-time graph
+        transform + device tables), built on first use: the same v4 step
+        with packed16 graph weights and lattice records that the JAX
+        package's `NativeModel.shared_decoder` builds.
+
+        The main graph's decoder (graph None) is kept for the model's
+        life.  Runtime-grammar recognizers pass their graph with the
+        grammar string as `cache_key`; the last GRAMMAR_DECODERS of those
+        are kept, least recently used dropped first."""
+        with self._decoder_lock:
+            if graph is None:
+                if self._decoder is None:
+                    self._decoder = self._new_decoder(self.graph)
+                return self._decoder
+            dec = self._grammar_decoders.get(cache_key)
+            if dec is None:
+                dec = self._new_decoder(graph)
+                self._grammar_decoders[cache_key] = dec
+                while len(self._grammar_decoders) > GRAMMAR_DECODERS:
+                    self._grammar_decoders.popitem(last=False)
+            else:
+                self._grammar_decoders.move_to_end(cache_key)
+            return dec
 
     def make_am(self):
         from ..models.tdnnf import TdnnfModel
@@ -142,6 +175,14 @@ class NativeModel:
         if self.config.endpoint_rules is None:
             return default_endpoint_rules()
         return [EndpointRule(**r) for r in self.config.endpoint_rules]
+
+    def make_ivector_extractor(self):
+        """None: directories with `ivector/` raise at load (ROADMAP A8)."""
+        return None
+
+    def find_word(self, word: str) -> int:
+        """vosk_model_find_word parity (vosk_api.h:69-74)."""
+        return self.words.find(word)
 
 
 def _graph_to_npz(graph: DecodingGraph) -> dict:
@@ -168,13 +209,20 @@ def save_model(
     phones: SymbolTable,
     phone_of_pdf,
     silence_pdfs,
+    lexicon: Optional[Lexicon] = None,
+    topology: Optional[Topology] = None,
 ) -> None:
-    """Write a native model dir (no lexicon, topology or graph LM; the batch
-    path reads none of them)."""
+    """Write a native model dir, with the lexicon and topology when given
+    (runtime grammars need both); no graph LM."""
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     cfg = dataclasses.asdict(config)
     cfg["format"] = FORMAT_VERSION
+    if topology is not None:
+        cfg["topology"] = dataclasses.asdict(topology)
+    if lexicon is not None:
+        cfg["silence_phone"] = lexicon.silence_phone
+        cfg["silence_cost"] = lexicon.silence_cost
     (p / CONFIG_NAME).write_text(json.dumps(cfg, indent=2, default=float))
     np.savez(p / "am.npz", **am_params)
     np.savez(p / "graph.npz", **_graph_to_npz(graph))
@@ -185,6 +233,33 @@ def save_model(
     )
     words.write_text(p / "words.txt")
     phones.write_text(p / "phones.txt")
+    if lexicon is not None:
+        with open(p / "lexicon.txt", "w", encoding="utf-8") as f:
+            for wid, prons in lexicon.prons.items():
+                for pron in prons:
+                    syms = " ".join(lexicon.phones.name(ph) for ph in pron)
+                    f.write(f"{lexicon.words.name(wid)} {syms}\n")
+
+
+def _read_lexicon(path, words, phones, silence_phone, silence_cost) -> Lexicon:
+    prons: Dict[int, List[List[int]]] = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            wid = words.find(parts[0])
+            pron = [phones.find(s) for s in parts[1:]]
+            if wid > 0 and all(ph > 0 for ph in pron):
+                prons.setdefault(wid, []).append(pron)
+    return Lexicon(words=words, phones=phones, prons=prons,
+                   silence_phone=silence_phone, silence_cost=silence_cost)
+
+
+def load_any(path, device="cuda") -> NativeModel:
+    """A model dir of any layout the port reads: native directories only
+    (the source also probes Kaldi layouts, which raise here)."""
+    return load_model(path, device=device)
 
 
 def load_model(path, device="cuda") -> NativeModel:
@@ -202,6 +277,7 @@ def load_model(path, device="cuda") -> NativeModel:
                 "support yet; it will not decode without it"
             )
     raw = json.loads(cfg_path.read_text())
+    topology = Topology(**raw.get("topology", {}))
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     config = ModelConfig(**{k: v for k, v in raw.items() if k in fields})
     if config.endpoint_rules is not None:
@@ -210,13 +286,22 @@ def load_model(path, device="cuda") -> NativeModel:
             for r in config.endpoint_rules
         ]
     maps = np.load(p / "maps.npz")
+    words = SymbolTable.read_text(p / "words.txt")
+    phones = SymbolTable.read_text(p / "phones.txt")
+    lexicon = None
+    if (p / "lexicon.txt").exists():
+        lexicon = _read_lexicon(p / "lexicon.txt", words, phones,
+                                raw.get("silence_phone", 0),
+                                raw.get("silence_cost", 0.7))
     return NativeModel(
         config=config,
         am_params=dict(np.load(p / "am.npz")),
         graph=_graph_from_npz(np.load(p / "graph.npz")),
-        words=SymbolTable.read_text(p / "words.txt"),
-        phones=SymbolTable.read_text(p / "phones.txt"),
+        words=words,
+        phones=phones,
         phone_of_pdf=maps["phone_of_pdf"],
         silence_pdfs=maps["silence_pdfs"],
         device=device,
+        lexicon=lexicon,
+        topology=topology,
     )

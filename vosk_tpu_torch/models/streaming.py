@@ -1,7 +1,7 @@
 """Generic streaming wrapper for acoustic models, in PyTorch.
 
 Port of `vosk_tpu/models/streaming.py` (`init_stream_state`,
-`_process_chunk_impl`, `_flush_impl`).  Any module exposing
+`_process_chunk_impl`, `_flush_impl` as `flush`).  Any module exposing
 `forward(window [B, W, D]) -> [B, ceil(W/ss), P]` with known left/right
 context and subsampling gets chunked streaming with carried feature
 history, masked per-channel advance, and end-of-stream flush.  State
@@ -120,3 +120,7 @@ class StreamingAm:
     def _flush_impl(self, state):
         pad_feats, pad_valid = self.flush_inputs(state)
         return self._process_chunk_impl(state, pad_feats, pad_valid)
+
+    # end-of-stream flush of every channel (the streaming recognizer's
+    # B = 1 state), under the source's name
+    flush = _flush_impl

@@ -228,6 +228,10 @@ class FeatureExtractor:
 
     # ---------------- streaming ----------------
 
+    # zeros to append at end of input for lookahead-delayed frames: the
+    # source needs them for pitch only, which the port does not have
+    flush_pad_samples = 0
+
     def stream_max_frames(self, chunk_samples: int) -> int:
         return chunk_samples // self.frame_opts.window_shift + 1
 

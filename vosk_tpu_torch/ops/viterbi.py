@@ -33,6 +33,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import heapq
+import threading
 
 import numpy as np
 import torch
@@ -82,6 +83,12 @@ def cost_bits(cost: torch.Tensor) -> torch.Tensor:
 def bits_cost(bits: torch.Tensor) -> torch.Tensor:
     raw = torch.where(bits < 0, _I32_MIN - bits, bits)
     return raw.view(torch.float32)
+
+
+def split_tsil(ts: np.ndarray):
+    """Packed tsil values -> (trailing-silence frames, has-speech bool)."""
+    ts = np.asarray(ts).astype(np.int64)
+    return ts & TSIL_MASK, (ts & SPEECH_BIT) != 0
 
 
 def _take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -138,6 +145,9 @@ class BatchViterbi:
         # the gather used by the frame step; chip_smoke.py swaps in
         # gather_rows_plain to compare the two on the same CUDA tensors
         self._gather = gather_rows
+        # recognizers of one model share this decoder: one chunk at a time
+        # (the source serialises decode_chunk the same way)
+        self._dispatch_lock = threading.RLock()
 
     # ------------------------------------------------------------------ init
 
@@ -233,6 +243,7 @@ class BatchViterbi:
         c.device = torch.device(device)
         for k in ("em_pack", "_prevm", "_ident_pm", "_final_cost_t"):
             setattr(c, k, getattr(self, k).to(c.device))
+        c._dispatch_lock = threading.RLock()
         return c
 
     def init_frontier(self, batch: int) -> dict:
@@ -357,41 +368,68 @@ class BatchViterbi:
 
     # ------------------------------------------------------------- chunk API
 
-    def decode_chunk(self, frontier, loglikes, valid=None):
-        """loglikes: [B, T, P] float32; valid: [B, T] bool.  Returns
-        (frontier, records {name: [T, B, K or R]}, best cost [B], best final
-        cost [B]), all on the decoder's device."""
-        B, T, _ = loglikes.shape
-        dev = loglikes.device
-        if valid is None:
-            valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    def record_buffers(self, lead: tuple, device=None) -> dict:
+        """Uninitialised record planes {name: [*lead, K or R]} on `device`
+        (the decoder's by default); `lead` is (T, B) for one chunk."""
+        dev = self.device if device is None else device
         shapes = {"pm": (torch.int32, self.K), "state": (torch.int32, self.K),
                   "f_cost": (torch.float32, self.K),
                   "lat_pm": (torch.int32, self.R),
                   "lat_cost": (torch.float32, self.R)}
-        recs = {k: torch.empty((T, B, n), dtype=dt, device=dev)
+        return {k: torch.empty((*lead, n), dtype=dt, device=dev)
                 for k, (dt, n) in shapes.items()}
-        ll32 = loglikes.to(torch.float32)
-        for t in range(T):
-            frontier, rec = self._frame_step_v4(
-                frontier, ll32[:, t].contiguous(), valid[:, t])
-            for k, v in rec.items():
-                recs[k][t] = v
-        best_cost = frontier["cost"].amin(dim=1)
-        final_tot = frontier["cost"] + self._final_cost_t[frontier["state"].long()]
-        return frontier, recs, best_cost, final_tot.amin(dim=1)
+
+    def decode_chunk(self, frontier, loglikes, valid=None, out=None):
+        """loglikes: [B, T, P] float32; valid: [B, T] bool.  Returns
+        (frontier, records {name: [T, B, K or R]}, best cost [B], best final
+        cost [B]), all on the decoder's device.  out: optional preallocated
+        records (`record_buffers((T, B))` or views of a larger buffer) to
+        write into instead of allocating."""
+        B, T, _ = loglikes.shape
+        dev = loglikes.device
+        if valid is None:
+            valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+        with self._dispatch_lock:
+            recs = out if out is not None else self.record_buffers((T, B), dev)
+            ll32 = loglikes.to(torch.float32)
+            for t in range(T):
+                frontier, rec = self._frame_step_v4(
+                    frontier, ll32[:, t].contiguous(), valid[:, t])
+                for k, v in rec.items():
+                    recs[k][t] = v
+            best_cost = frontier["cost"].amin(dim=1)
+            final_tot = frontier["cost"] + self._final_cost_t[frontier["state"].long()]
+            return frontier, recs, best_cost, final_tot.amin(dim=1)
+
+    def best_tsil(self, frontier) -> torch.Tensor:
+        """[B] int32 on the frontier's device: the best (non-final) token's
+        packed trailing-silence count and has-speech bit (split it with
+        `split_tsil`)."""
+        cost = frontier["cost"]
+        slot = torch.where(torch.isfinite(cost), cost, INF).argmin(dim=1)
+        return frontier["tsil"].gather(1, slot[:, None])[:, 0]
 
     def endpoint_info(self, frontier):
         """O(1) endpoint inputs from the device-tracked token state: per
         channel, the best (non-final) token's trailing-silence frame count
         and whether its path contains speech, pulled to the host as numpy
         (trailing [B], has_speech [B])."""
-        cost = frontier["cost"]
-        slot = torch.where(torch.isfinite(cost), cost, INF).argmin(dim=1)
-        ts = to_host(frontier["tsil"].gather(1, slot[:, None])[:, 0])
-        return ts & TSIL_MASK, (ts & SPEECH_BIT) != 0
+        return split_tsil(to_host(self.best_tsil(frontier)))
 
     # ------------------------------------------------------------ host side
+
+    # the padded layout's em-level lattice records store the in-row arc slot
+    # m; hosts reconstruct the dense arc id as prev_state * M + m
+    lat_arc_is_m = True
+
+    def host_em_arc(self, ai: int) -> tuple[float, int, int]:
+        """(graph_weight, olabel, pdf) of a dense emitting-arc id."""
+        s, m = divmod(int(ai), self.M)
+        return (
+            float(self.dense_w[s, m]),
+            int(self.dense_olabel[s, m]),
+            int(self.dense_pdf[s, m]),
+        )
 
     def traceback_with_frames(
         self, records, frontier, channel, use_final=True, at_start=True,

@@ -262,10 +262,15 @@ class BatchRecognizer:
     def __init__(self, batch_model: BatchModel, sample_rate: float):
         self._pipeline = batch_model._pipeline
         self.sample_rate = float(sample_rate)
+        # stateful band-limited resampler per stream, on the host, matching
+        # the reference's per-stream Kaldi LinearResample
+        # (batch_recognizer.cc:27-29,157-158)
+        self._resampler = None
         if abs(self.sample_rate - self._pipeline.rate) > 1e-6:
-            raise NotImplementedError(
-                f"input at {self.sample_rate:g} Hz needs the resampler "
-                f"(model rate {self._pipeline.rate:g} Hz), which is not ported yet"
+            from ..ops.resample import StreamingResampler
+
+            self._resampler = StreamingResampler(
+                self.sample_rate, self._pipeline.rate
             )
         self._buffer = np.zeros(0, np.float32)
         self._results: deque = deque()
@@ -283,6 +288,8 @@ class BatchRecognizer:
             wave = pcm16_bytes_to_float(bytes(data))
         else:
             wave = np.asarray(data, np.float32)
+        if self._resampler is not None:
+            wave = self._resampler.process(wave)
         ch = self._ensure_channel()
         self._buffer = np.concatenate([self._buffer, wave])
         S = self._pipeline.chunk_samples
@@ -297,6 +304,11 @@ class BatchRecognizer:
         if self._channel is None:
             return
         ch = self._channel
+        if self._resampler is not None:
+            tail = self._resampler.flush()
+            if len(tail):
+                self._buffer = np.concatenate([self._buffer, tail])
+            self._resampler.reset()
         if len(self._buffer) > 0:
             self._pipeline.push(ch, self._buffer)
             self._buffer = np.zeros(0, np.float32)

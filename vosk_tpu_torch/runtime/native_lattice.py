@@ -1,6 +1,6 @@
 """ctypes binding for the native lattice finishing library
 (core/libvosk_tpu_core.so, built from core/src/lattice.cc with
-`make -C core libvosk_tpu_core.so`).
+`make -C core libvosk_tpu_core.so` or `build_library()`).
 
 Copy of `vosk_tpu/runtime/native_lattice.py` for the padded (v4) layout.
 The port has no Python lattice fallback: runtime/finishing.py raises when
@@ -10,12 +10,21 @@ v4 adapter (graph/lattice.py) pulls the one channel it needs to the host.
 from __future__ import annotations
 
 import ctypes as C
+import fcntl
+import os
+import subprocess
+import time
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 _LIB: Optional[C.CDLL] = None
+_CORE = Path(__file__).resolve().parents[2] / "core"
+LIBRARY = _CORE / "libvosk_tpu_core.so"
+# how long build_library waits for a library that another builder is
+# still writing
+_LOAD_WAIT_SECONDS = 120.0
 
 
 class VtWord(C.Structure):
@@ -70,9 +79,7 @@ def _load() -> Optional[C.CDLL]:
     global _LIB
     if _LIB is not None:
         return _LIB
-    root = Path(__file__).resolve().parents[2]
-    for cand in (root / "core" / "libvosk_tpu_core.so",
-                 Path(__file__).parent / "libvosk_tpu_core.so"):
+    for cand in (LIBRARY, Path(__file__).parent / "libvosk_tpu_core.so"):
         if cand.exists():
             try:
                 lib = C.CDLL(str(cand))
@@ -108,6 +115,45 @@ def _load() -> Optional[C.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def build_library() -> Path:
+    """Make sure core/libvosk_tpu_core.so exists and loads, compiling it if
+    absent.  Concurrent callers serialise on an fcntl lock on
+    core/.libvosk_tpu_core.lock; the library is compiled as core/Makefile
+    does into a temporary name in core/ and moved into place with
+    os.replace, so no loader sees a half-written file.  A `make` writing
+    the same file without the lock is waited out: loading is retried for
+    up to _LOAD_WAIT_SECONDS."""
+    if available():
+        return LIBRARY
+    with open(_CORE / ".libvosk_tpu_core.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not LIBRARY.exists():
+                tmp = _CORE / f".libvosk_tpu_core.{os.getpid()}.tmp.so"
+                cmd = [os.environ.get("CXX", "g++"), "-O3", "-g", "-fPIC",
+                       "-std=c++17", "-Wall", "-Iinclude", "-shared",
+                       "-o", tmp.name, "src/lattice.cc"]
+                try:
+                    proc = subprocess.run(cmd, cwd=_CORE, capture_output=True,
+                                          text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"building {LIBRARY.name} failed (exit "
+                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                    os.replace(tmp, LIBRARY)
+                finally:
+                    if tmp.exists():
+                        tmp.unlink()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    deadline = time.monotonic() + _LOAD_WAIT_SECONDS
+    while not available():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{LIBRARY} exists but does not load")
+        time.sleep(0.2)
+    return LIBRARY
 
 
 def _ptr(arr, ctype):

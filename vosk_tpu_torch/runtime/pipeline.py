@@ -1,0 +1,108 @@
+"""Fused streaming pipeline: features -> TDNN-F -> token passing over the
+channel batch, with every streaming state on the model's device.
+
+Port of `vosk_tpu/runtime/pipeline.py` `FusedPipeline` (`init_state`,
+`step`, `run_scan` with its `ll_bias` hook), the batch-throughput surface
+that bench.py times.  The source's `lax.scan` over chunks becomes a Python
+loop that writes each chunk's decoder records into preallocated
+`[n_chunks, T, B, K|R]` buffers.  The decoder is the model's shared one
+(v4 step, packed16 rows, lattice records on).
+
+Not ported: the device mesh (ROADMAP A13), and, by decision, `run_adaptive`
+and the ragged unroll (ROADMAP A, "Not ported").  No CUDA graph is captured
+yet (ROADMAP B4).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..io.native import NativeModel
+
+
+class FusedPipeline:
+    def __init__(
+        self,
+        model: NativeModel,
+        batch: int,
+        chunk_seconds: float = 0.2,
+        collect_records: bool = True,
+    ):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.model = model
+        self.device = model.device
+        self.B = batch
+        self.ex = model.feature_extractor()
+        self.am = model.make_am()
+        self.dec = model.shared_decoder()
+        self.rate = model.config.sample_rate
+        self.chunk_samples = int(chunk_seconds * self.rate)
+        self.F = self.ex.stream_max_frames(self.chunk_samples)
+        # decoded frames per chunk: the AM's output slots for F features
+        self.T = self.am.stream_max_out(self.F)
+        self.collect_records = collect_records
+
+    def init_state(self) -> dict:
+        return {
+            "feat": self.ex.init_stream_state(self.B, self.chunk_samples),
+            "am": self.am.init_stream_state(self.B, self.F),
+            "frontier": self.dec.init_frontier(self.B),
+        }
+
+    def _as_device(self, x, dtype):
+        return torch.as_tensor(x, dtype=dtype).to(self.device)
+
+    def _step_impl(self, state, audio, n_samples, ll_bias=None, out=None):
+        feat_state, feats, fvalid = self.ex.extract_chunk(
+            state["feat"], audio, n_samples=n_samples
+        )
+        am_state, ll, lvalid = self.am.process_chunk(state["am"], feats, fvalid)
+        if ll_bias is not None:
+            # benchmark hook: structured acoustic scores added to the AM
+            # output so the decoder sees plausible-path dynamics
+            ll = ll * 1e-3 + ll_bias
+        frontier, recs, best, bestf = self.dec.decode_chunk(
+            state["frontier"], ll, lvalid, out=out
+        )
+        new_state = {"feat": feat_state, "am": am_state, "frontier": frontier}
+        return new_state, recs, best, bestf, lvalid.sum(dim=1)
+
+    def step(self, state, audio, n_samples=None):
+        """audio: [B, chunk_samples].  Returns (state, records|None, best,
+        best_final, frames_decoded [B]), all on the device."""
+        audio = self._as_device(audio, torch.float32)
+        if n_samples is None:
+            n_samples = torch.full((self.B,), audio.shape[1], dtype=torch.int32,
+                                   device=self.device)
+        state, recs, best, bestf, frames = self._step_impl(
+            state, audio, self._as_device(n_samples, torch.int32))
+        return state, recs if self.collect_records else None, best, bestf, frames
+
+    def run_scan(self, state, audio, n_samples=None, ll_bias=None):
+        """Advance many chunks back to back.
+
+        audio: [n_chunks, B, chunk_samples] pre-staged chunks.  ll_bias:
+        optional [n_chunks, B, T, P] acoustic bias (see `_step_impl`).
+        Returns (state, records {name: [n_chunks, T, B, K|R]} or None when
+        collect_records is off, best [n_chunks, B])."""
+        audio = self._as_device(audio, torch.float32)
+        n_chunks = audio.shape[0]
+        if n_samples is None:
+            n_samples = torch.full(audio.shape[:2], audio.shape[2],
+                                   dtype=torch.int32, device=self.device)
+        n_samples = self._as_device(n_samples, torch.int32)
+        if ll_bias is not None:
+            ll_bias = self._as_device(ll_bias, torch.float32)
+        # one chunk's worth of scratch when records are not kept
+        recs = self.dec.record_buffers(
+            (n_chunks if self.collect_records else 1, self.T, self.B))
+        best = torch.empty((n_chunks, self.B), dtype=torch.float32,
+                           device=self.device)
+        for i in range(n_chunks):
+            j = i if self.collect_records else 0
+            state, _, best[i], _, _ = self._step_impl(
+                state, audio[i], n_samples[i],
+                None if ll_bias is None else ll_bias[i],
+                out={k: v[j] for k, v in recs.items()},
+            )
+        return state, recs if self.collect_records else None, best

@@ -1,0 +1,594 @@
+"""Streaming Recognizer in PyTorch: the state machine of the reference
+Recognizer (src/recognizer.h:43, src/recognizer.cc) over the port's
+features -> TDNN-F -> v4 token passing.
+
+Port of `vosk_tpu/runtime/recognizer.py`: states INITIALIZED / RUNNING /
+ENDPOINT / FINALIZED (recognizer.h:36-41), endpoint rules, 0.2 s chunking
+(recognizer.cc:305-311), frame-offset and sample bookkeeping for absolute
+timestamps (recognizer.cc:196-223, 457-458), resampling of input at another
+rate, bounded streaming memory (old record chunks fold into a frozen
+best-path prefix and a spliced prefix lattice), and the JSON results.
+
+The feature, AM and decoder states and the decoder records stay on the
+model's device as B = 1 tensors.  The host reads back once per chunk: one
+small tensor with the chunk's decoded-frame count, the best and best-final
+costs and the best token's trailing-silence word.  Results read the records
+they need.  Recognizers of one model share its decoder
+(`NativeModel.shared_decoder`), as the reference shares its Model.
+
+Not ported: the i-vector and speaker (x-vector) branches; a speaker model
+raises (ROADMAP A8, A11).
+"""
+from __future__ import annotations
+
+import enum
+import json
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..graph.builder import build_decoding_graph
+from ..graph.lattice import to_host
+from ..graph.lm import grammar_to_fst
+from ..io.native import NativeModel
+from ..io.wav import pcm16_bytes_to_float
+from ..ops.viterbi import split_tsil
+from ..utils.logging import log_warn
+from . import endpoint as ep
+from . import jsonout
+
+
+class State(enum.Enum):
+    INITIALIZED = 0
+    RUNNING = 1
+    ENDPOINT = 2
+    FINALIZED = 3
+
+
+# pipeline recycle threshold: ~10 minutes of decoded frames
+# (reference recognizer.cc:196-202 uses 20000 decoded frames)
+RECYCLE_FRAMES = 20000
+
+
+class Recognizer:
+    def __init__(
+        self,
+        model: NativeModel,
+        sample_rate: float,
+        grammar: Optional[str] = None,
+        spk_model=None,
+    ):
+        if spk_model is not None:
+            raise NotImplementedError(
+                "speaker identification (SpkModel) is not ported yet")
+        self.model = model
+        self.device = model.device
+        self.sample_rate = float(sample_rate)
+        # input at a different rate is resampled to the model's rate
+        # (reference: allow_downsample in the feature pipeline, model.cc:221,
+        # and LinearResample on the batch path, batch_recognizer.cc:27-29)
+        self.model_rate = float(model.config.sample_rate)
+        self._resampler = None
+
+        self.graph = model.graph
+        self._grammar_info = None
+        if grammar is not None:
+            self._build_grammar_graph(grammar)
+
+        # full-f32 products, as the batch pipeline sets them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.ex = model.feature_extractor()
+        self.am = model.make_am()
+        # the model's shared decoder (v4 step, packed16 rows, lattice
+        # records), one per runtime grammar
+        self.dec = model.shared_decoder(
+            graph=self.graph if self._grammar_info is not None else None,
+            cache_key=grammar if self._grammar_info is not None else None,
+        )
+        from .finishing import Finisher
+
+        self._finisher = Finisher(model, self.dec)
+        self.frame_shift = model.config.frame_shift_seconds
+        self.rules = model.endpoint_rules()
+        # bounded streaming memory: records older than this window are
+        # folded into a frozen best-path prefix and a prefix lattice
+        self.max_window_frames = 300
+        self.keep_window_frames = 200
+
+        # fixed device chunk: 0.2 s of samples (recognizer.cc:305)
+        self.chunk_samples = int(0.2 * self.model_rate)
+        self.max_feat_frames = self.ex.stream_max_frames(self.chunk_samples)
+
+        # result options
+        self.words_ = False
+        self.partial_words_ = False
+        self.max_alternatives_ = 0
+        self.nlsml_ = False
+
+        # bookkeeping across utterances
+        self.frame_offset_ = 0          # output frames finalized so far
+        self.samples_processed_ = 0
+        self.samples_round_start_ = 0
+
+        from ..utils.metrics import StageTimers
+
+        self.metrics = StageTimers()
+        self._init_pipeline()
+        self.state = State.INITIALIZED
+        self.last_result_ = ""
+
+    # ------------------------------------------------------------- setup
+
+    def _build_grammar_graph(self, grammar: str) -> None:
+        """Runtime phrase-list graph (reference recognizer.cc:49-98):
+        L o G recompiled from the model's lexicon."""
+        if self.model.lexicon is None:
+            log_warn("Runtime graphs are not supported by this model")
+            return
+        try:
+            phrases = json.loads(grammar)
+        except json.JSONDecodeError:
+            phrases = []
+        if not isinstance(phrases, list) or not phrases:
+            log_warn(f"Expecting array of strings, got: '{grammar}'")
+            return
+        g = grammar_to_fst([str(p) for p in phrases], self.model.words.find)
+        self.graph, self._grammar_info = build_decoding_graph(
+            self.model.lexicon, g, self.model.topology
+        )
+
+    def _init_pipeline(self) -> None:
+        self._feat_state = self.ex.init_stream_state(1, self.chunk_samples)
+        self._am_state = self.am.init_stream_state(1, self.max_feat_frames)
+        self._frontier = self.dec.init_frontier(1)
+        self._reset_utterance_records()
+        self._pending = np.zeros(0, np.float32)
+        self._best_cost = np.inf
+        self._best_final_cost = np.inf
+        self._flushed = False
+
+    def _reset_utterance_records(self) -> None:
+        self._records: list = []
+        self._rec_frames: list = []     # decoded frames per retained chunk
+        self._utt_frames = 0            # output frames decoded this utterance
+        self._folded_frames = 0         # frames folded out of the window
+        self._prefix_ols: list = []     # frozen (olabel, frame) before window
+        self._prefix_pdfs: list = []    # frozen pdf alignment before window
+        self._fold_init = None          # (states, costs) at the fold boundary
+        self._prefix_lat = None         # windowed prefix LATTICE (alternatives
+        self._prefix_slots = None       # survive folding); slot -> end node
+        self._trailing, self._has_speech = 0, False
+
+    # ---------------------------------------------------------- options
+
+    def set_words(self, v: bool) -> None:
+        self.words_ = bool(v)
+
+    def set_partial_words(self, v: bool) -> None:
+        self.partial_words_ = bool(v)
+
+    def set_max_alternatives(self, n: int) -> None:
+        self.max_alternatives_ = int(n)
+
+    def set_nlsml(self, v: bool) -> None:
+        self.nlsml_ = bool(v)
+
+    # ------------------------------------------------------------ ingest
+
+    def accept_waveform(self, data) -> bool:
+        """Accept PCM data (bytes = s16le, or a numpy int16/float array).
+        Returns True when an endpoint (silence) was detected
+        (vosk_api.h:212-221)."""
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            wave = pcm16_bytes_to_float(bytes(data))
+        else:
+            wave = np.asarray(data).astype(np.float32)
+        return self._accept(wave)
+
+    def _accept(self, wave: np.ndarray) -> bool:
+        if self.state not in (State.RUNNING, State.INITIALIZED):
+            self._clean_up()
+        self.state = State.RUNNING
+
+        if abs(self.sample_rate - self.model_rate) > 1e-6:
+            # stateful band-limited resampler on the host (the reference's
+            # per-stream LinearResample); phase carries across calls
+            if self._resampler is None:
+                from ..ops.resample import StreamingResampler
+
+                self._resampler = StreamingResampler(
+                    self.sample_rate, self.model_rate
+                )
+            wave = self._resampler.process(wave)
+
+        buf = np.concatenate([self._pending, wave])
+        S = self.chunk_samples
+        pos = 0
+        while len(buf) - pos >= S:
+            self._process_chunk(buf[pos : pos + S], S)
+            pos += S
+        self._pending = buf[pos:]
+        self.samples_processed_ += len(wave)
+
+        return self._endpoint_check()
+
+    def _process_chunk(self, chunk: np.ndarray, n_valid: int) -> None:
+        S = self.chunk_samples
+        if len(chunk) < S:
+            chunk = np.concatenate([chunk, np.zeros(S - len(chunk), np.float32)])
+        self.metrics.add_audio(n_valid / self.model_rate)
+        with self.metrics.timer("features"):
+            self._feat_state, feats, fvalid = self.ex.extract_chunk(
+                self._feat_state,
+                torch.from_numpy(np.ascontiguousarray(chunk[None, :])).to(self.device),
+                n_samples=torch.full((1,), n_valid, dtype=torch.int32,
+                                     device=self.device),
+            )
+        with self.metrics.timer("acoustic_model"):
+            self._am_state, ll, lvalid = self.am.process_chunk(
+                self._am_state, feats, fvalid
+            )
+        self._decode(ll, lvalid)
+
+    def _decode(self, ll, lvalid) -> None:
+        with self.metrics.timer("decoder"):
+            self._frontier, recs, best, bestf = self.dec.decode_chunk(
+                self._frontier, ll, lvalid
+            )
+            # the chunk's one host read: decoded frames, best and best-final
+            # cost, and the best token's packed trailing-silence word
+            # (float64 holds each of them exactly)
+            head = to_host(torch.stack([
+                lvalid[0].sum().double(), best[0].double(), bestf[0].double(),
+                self.dec.best_tsil(self._frontier)[0].double(),
+            ]))
+        n = int(head[0])
+        self._records.append(recs)
+        self._rec_frames.append(n)
+        self._utt_frames += n
+        self._best_cost = float(np.float32(head[1]))
+        self._best_final_cost = float(np.float32(head[2]))
+        trailing, speech = split_tsil(np.array([int(head[3])]))
+        self._trailing, self._has_speech = int(trailing[0]), bool(speech[0])
+        if self._utt_frames - self._folded_frames > self.max_window_frames:
+            with self.metrics.timer("fold"):
+                self._fold_records()
+
+    def _fold_records(self) -> None:
+        """Bound streaming memory: fold the oldest record chunks into a
+        frozen best-path prefix (and the prefix lattice) so retained device
+        records stay within keep_window_frames (the reference bounds
+        lattice memory with incremental determinization, model.h:24)."""
+        retained = self._utt_frames - self._folded_frames
+        n_drop, drop_frames = 0, 0
+        while (
+            n_drop < len(self._records) - 1
+            and retained - drop_frames > self.keep_window_frames
+        ):
+            drop_frames += self._rec_frames[n_drop]
+            n_drop += 1
+        if n_drop == 0 or drop_frames == 0:
+            return
+        _, ols, pdfs = self.dec.traceback_with_frames(
+            self._records, self._frontier, 0, use_final=False,
+            at_start=self._folded_frames == 0,
+            init_states=self._window_init_states(),
+        )
+        self._prefix_ols += [
+            (ol, f + self._folded_frames) for (ol, f) in ols if f < drop_frames
+        ]
+        self._prefix_pdfs += pdfs[:drop_frames]
+        last = self._records[n_drop - 1]  # v4 records: [T, B, K]
+        prev_init = self._fold_init
+        self._fold_init = (
+            to_host(last["state"][-1, 0]).copy(),
+            to_host(last["f_cost"][-1, 0]).copy(),
+        )
+        self._extend_prefix_lattice(
+            self._records[:n_drop], prev_init, self._fold_init
+        )
+        self._records = self._records[n_drop:]
+        self._rec_frames = self._rec_frames[n_drop:]
+        self._folded_frames += drop_frames
+
+    def _extend_prefix_lattice(self, dropped, prev_init, boundary) -> None:
+        """Windowed lattice: append the dropped record window's lattice to
+        the retained prefix lattice so alternatives (n-best, confidences)
+        survive folding; beam-pruned at each fold to bound memory."""
+        from ..graph.lattice import build_lattice, splice_lattices
+
+        fake_fr = {
+            "state": np.asarray(boundary[0])[None, :],
+            "cost": np.asarray(boundary[1])[None, :],
+        }
+        init_map: dict = {}
+        try:
+            lat_d, endmap = build_lattice(
+                dropped, fake_fr, 0, self.dec, use_final=False,
+                init_override=prev_init, init_map_out=init_map,
+            )
+        except Exception as e:  # never let prefix-lattice upkeep kill decode
+            log_warn(f"prefix lattice build failed, freezing prefix: {e}")
+            self._prefix_lat = None
+            self._prefix_slots = None
+            return
+        if self._prefix_lat is None:
+            self._prefix_lat, self._prefix_slots = lat_d, endmap
+        elif self._prefix_slots is not None:
+            self._prefix_lat, nmap = splice_lattices(
+                self._prefix_lat, self._prefix_slots, lat_d, init_map,
+                frame_offset=self._folded_frames,
+            )
+            self._prefix_slots = {k: nmap[n] for k, n in endmap.items()}
+        if self._prefix_lat is not None and self._prefix_slots is not None:
+            # bound memory: prune against the best boundary cost (finals
+            # 0.0 on boundary nodes for the forward-backward, then cleared)
+            lat = self._prefix_lat
+            for node in self._prefix_slots.values():
+                lat.final[node] = 0.0
+            node_map: list = []
+            pruned = lat.prune(
+                self.dec.params.lattice_beam, node_map_out=node_map
+            )
+            if pruned is not lat:
+                self._prefix_lat = pruned
+                self._prefix_slots = {
+                    k: node_map[n]
+                    for k, n in self._prefix_slots.items()
+                    if node_map[n] >= 0
+                }
+            for node in self._prefix_slots.values():
+                self._prefix_lat.final[node] = math.inf
+
+    def _window_init_states(self):
+        """[K] graph-state row of the frontier just before the retained
+        record window (the fold-boundary anchor of v4 tracebacks); None at
+        utterance start."""
+        if self._folded_frames == 0 or self._fold_init is None:
+            return None
+        return self._fold_init[0]
+
+    def _full_traceback(self, use_final: bool):
+        """Best path over the whole utterance: frozen prefix + retained
+        window.  Returns (cost, ols_frames, pdfs) in utterance frames."""
+        cost, ols, pdfs = self.dec.traceback_with_frames(
+            self._records, self._frontier, 0, use_final=use_final,
+            at_start=self._folded_frames == 0,
+            init_states=self._window_init_states(),
+        )
+        off = self._folded_frames
+        ols = self._prefix_ols + [(ol, f + off) for (ol, f) in ols]
+        return cost, ols, self._prefix_pdfs + pdfs
+
+    def _flush_pending(self, input_finished: bool) -> None:
+        """Feed remaining buffered samples; on `input_finished` also flush
+        the resampler and the AM right context (reference: InputFinished in
+        FinalResult only, recognizer.cc:824-827; the endpoint Result() does
+        not flush, so the feature/AM stream stays live)."""
+        if input_finished and self._resampler is not None:
+            tail = self._resampler.flush()
+            if len(tail):
+                self._pending = np.concatenate([self._pending, tail])
+            self._resampler.reset()
+        if len(self._pending) > 0:
+            self._process_chunk(self._pending, len(self._pending))
+            self._pending = np.zeros(0, np.float32)
+        if input_finished and not self._flushed:
+            self._am_state, ll, lvalid = self.am.flush(self._am_state)
+            self._decode(ll, lvalid)
+            self._flushed = True
+
+    # ---------------------------------------------------------- endpoint
+
+    def _endpoint_check(self) -> bool:
+        """O(1) endpoint check from the device-tracked trailing silence read
+        with the last chunk (the reference reads equivalent decoder state
+        at recognizer.cc:318)."""
+        if self._utt_frames == 0:
+            return False
+        rel = self._best_final_cost - self._best_cost
+        return ep.endpoint_detected(
+            self.rules,
+            self._utt_frames,
+            self._trailing,
+            rel,
+            self.frame_shift,
+            self._has_speech,
+        )
+
+    # ----------------------------------------------------------- results
+
+    def _clean_up(self) -> None:
+        """Reference CleanUp (recognizer.cc:188-224): accumulate the frame
+        offset; recycle the whole pipeline after FINALIZED or ~10 min, else
+        just restart the decoder with the frame offset."""
+        self.frame_offset_ += self._utt_frames
+        if self.state == State.FINALIZED or self.frame_offset_ > RECYCLE_FRAMES:
+            self.samples_round_start_ += self.samples_processed_
+            self.samples_processed_ = 0
+            self.frame_offset_ = 0
+            self._init_pipeline()
+        else:
+            # restart decoding from the start state, keep feature/AM streams
+            self._frontier = self.dec.init_frontier(1)
+            self._reset_utterance_records()
+            self._best_cost = np.inf
+            self._best_final_cost = np.inf
+
+    def _word_results(self, olabels_with_frames) -> List[jsonout.WordResult]:
+        """Word timing entries.  Times use the reference formula
+        samples_round_start_/rate + (frame_offset_ + frame) * 0.03
+        (recognizer.cc:457-458)."""
+        base = self.samples_round_start_ / self.model_rate
+        return [
+            jsonout.WordResult(
+                self.model.words.name(wid),
+                base + (self.frame_offset_ + f_start) * self.frame_shift,
+                base + (self.frame_offset_ + f_end) * self.frame_shift,
+                conf,
+            )
+            for (wid, f_start, f_end, conf) in olabels_with_frames
+        ]
+
+    def _best_path_words(self, use_final: bool):
+        """Traceback + word segmentation from the pdf alignment."""
+        cost, ols, pdfs = self._full_traceback(use_final)
+        return cost, self._segment_words(ols, pdfs), pdfs
+
+    def _segment_words(self, ols_frames, pdfs):
+        """(olabel, frame emitted) -> (wid, start_frame, end_frame, conf):
+        a word runs to the next word's emission frame, trailing silence
+        trimmed, then realigned by word-boundary phone types when the model
+        has them (reference WordAlignLattice, recognizer.cc:435,752)."""
+        from .wordalign import realign_items
+
+        sil = set(int(x) for x in self.model.silence_pdfs)
+        T = len(pdfs)
+        items = []
+        for i, (wid, f0) in enumerate(ols_frames):
+            f1 = ols_frames[i + 1][1] if i + 1 < len(ols_frames) else T
+            while f1 > f0 + 1 and pdfs[f1 - 1] in sil:
+                f1 -= 1
+            items.append((wid, f0, f1, 1.0))
+        return realign_items(
+            items, pdfs, self.model.phone_of_pdf, self.model.word_boundary
+        )
+
+    def _lattice_paths(self, n: int, use_final: bool):
+        """n best lattice paths with word items and per-word posteriors via
+        the shared Finisher.  Returns [(cost, [(wid, f0, f1, conf)])] in
+        utterance frames."""
+        if self._folded_frames > 0 and self._prefix_lat is not None:
+            out = self._spliced_lattice_paths(n, use_final)
+            if not out and use_final:
+                out = self._spliced_lattice_paths(n, use_final=False)
+            if out:
+                return out  # frames already absolute; no prefix merge
+        kw = dict(n=n, init_override=self._fold_init)
+        out = self._finisher.paths(self._records, self._frontier, 0,
+                                   use_final=use_final, **kw)
+        if not out and use_final:
+            # no complete final-state path inside the lattice beam: fall
+            # back to non-final paths, like Kaldi's GetLattice
+            # (use_final_probs=false) fallback
+            out = self._finisher.paths(self._records, self._frontier, 0,
+                                       use_final=False, **kw)
+        return self._merge_prefix_paths(out)
+
+    def _spliced_lattice_paths(self, n: int, use_final: bool):
+        """Whole-utterance n-best and confidences across fold boundaries:
+        the retained window's lattice spliced onto the prefix lattice
+        (Python lattice, as in the source)."""
+        from ..graph.lattice import build_lattice, splice_lattices
+
+        init_map: dict = {}
+        try:
+            win_lat, _ = build_lattice(
+                self._records, self._frontier, 0, self.dec,
+                use_final=use_final, init_override=self._fold_init,
+                init_map_out=init_map,
+            )
+            pre = self._prefix_lat.copy()
+            lat, _ = splice_lattices(
+                pre, dict(self._prefix_slots), win_lat, init_map,
+                frame_offset=self._folded_frames,
+            )
+        except Exception as e:
+            log_warn(f"spliced lattice failed, frozen-prefix fallback: {e}")
+            return []
+        return self._finisher.finish_lattice(lat, n)
+
+    def _merge_prefix_paths(self, paths):
+        """Shift window-relative word frames into utterance frames and
+        prepend the frozen best-path prefix (its words keep conf 1.0)."""
+        if self._folded_frames == 0:
+            return paths
+        prefix_items = [
+            (wid, f0, f1, 1.0)
+            for (wid, f0, f1, _c) in self._segment_words(
+                self._prefix_ols, self._prefix_pdfs
+            )
+        ]
+        off = self._folded_frames
+        return [
+            (cost, prefix_items
+             + [(w, f0 + off, f1 + off, c) for (w, f0, f1, c) in items])
+            for cost, items in paths
+        ]
+
+    def get_metrics(self) -> dict:
+        """Per-stage timing report (host time; utils/metrics.py)."""
+        return self.metrics.report()
+
+    def _get_result(self) -> str:
+        """Reference GetResult dispatch (recognizer.cc:669-728)."""
+        if self._utt_frames == 0:
+            return self._store_empty()
+        if self.max_alternatives_ == 0:
+            with self.metrics.timer("finishing"):
+                paths = self._lattice_paths(1, use_final=True)
+            if not paths:
+                return self._store_empty()
+            words = self._word_results(paths[0][1])
+            return jsonout.final_result(words, self.words_)
+        paths = self._lattice_paths(self.max_alternatives_, use_final=True)
+        if not paths:
+            return self._store_empty()
+        alts = [(self._word_results(items), -cost) for cost, items in paths]
+        if self.nlsml_:
+            return jsonout.nlsml_result(alts)
+        return jsonout.nbest_result(alts, self.words_)
+
+    def _store_empty(self) -> str:
+        if not self.max_alternatives_:
+            self.last_result_ = '{"text": ""}'
+        elif self.nlsml_:
+            self.last_result_ = (
+                '<?xml version="1.0"?>\n<result grammar="default">\n'
+                '<interpretation confidence="1.0">\n<instance/>\n'
+                "<input><noinput/></input>\n</interpretation>\n</result>\n"
+            )
+        else:
+            self.last_result_ = '{"alternatives" : [{"text": "", "confidence" : 1.0}] }'
+        return self.last_result_
+
+    def result(self) -> str:
+        """Finalize the current utterance after an endpoint
+        (vosk_api.h:234-250)."""
+        if self.state != State.RUNNING:
+            return self._store_empty()
+        self._flush_pending(input_finished=False)
+        self.state = State.ENDPOINT
+        self.last_result_ = self._get_result()
+        return self.last_result_
+
+    def partial_result(self) -> str:
+        if self.state != State.RUNNING or self._utt_frames == 0:
+            return jsonout.empty_partial()
+        if self.partial_words_:
+            # lattice path with posteriors (reference partial_words MBR
+            # path, recognizer.cc:740-781)
+            paths = self._lattice_paths(1, use_final=False)
+            words = self._word_results(paths[0][1]) if paths else []
+        else:
+            _, words_items, _ = self._best_path_words(use_final=False)
+            words = self._word_results(words_items)
+        self.last_result_ = jsonout.partial_result(words, self.partial_words_)
+        return self.last_result_
+
+    def final_result(self) -> str:
+        if self.state != State.RUNNING:
+            return self._store_empty()
+        self._flush_pending(input_finished=True)
+        self.state = State.FINALIZED
+        self.last_result_ = self._get_result()
+        return self.last_result_
+
+    def reset(self) -> None:
+        self._store_empty()
+        if self._resampler is not None:
+            self._resampler.reset()
+        self.state = State.ENDPOINT

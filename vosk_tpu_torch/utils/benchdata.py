@@ -1,9 +1,10 @@
 """Synthetic benchmark model at realistic scale: flagship-size TDNN-F AM and
 a procedurally generated decoding graph with controllable state/arc counts.
 
-Seed-identical numpy copy of `make_realistic_graph` and the realistic branch
-of `make_bench_model` from `vosk_tpu/utils/benchdata.py`, so both packages
-build the same model from a seed (tests/test_torch_copies.py).
+Seed-identical numpy copy of `make_realistic_graph`,
+`make_plausible_loglikes` and the realistic branch of `make_bench_model`
+from `vosk_tpu/utils/benchdata.py`, so both packages build the same model
+and the same scores from a seed (tests/test_torch_copies.py).
 """
 from __future__ import annotations
 
@@ -105,6 +106,37 @@ def make_realistic_graph(
         max_em_out=int(em_cnt.max()),
         max_eps_out=int(eps_cnt.max()) if An else 0,
     )
+
+
+def make_plausible_loglikes(
+    graph: DecodingGraph,
+    num_pdfs: int,
+    batch: int,
+    num_frames: int,
+    snr: float = 4.0,
+    seed: int = 0,
+) -> np.ndarray:
+    """Acoustic scores shaped like real decoding: per channel, walk a random
+    path through the graph and boost the pdfs along it, plus noise.  Random
+    (pathless) scores make every graph state equally plausible, which turns
+    beam search into worst-case full-graph exploration; real audio locks the
+    beam onto path neighborhoods.  Returns [num_frames, batch, num_pdfs]."""
+    rng = np.random.default_rng(seed + 1)
+    ll = rng.standard_normal((num_frames, batch, num_pdfs)).astype(np.float32)
+    off = graph.em_off
+    for b in range(batch):
+        s = graph.start
+        for t in range(num_frames):
+            lo, hi = int(off[s]), int(off[s + 1])
+            if hi <= lo:
+                s = graph.start
+                lo, hi = int(off[s]), int(off[s + 1])
+                if hi <= lo:
+                    break
+            ai = int(rng.integers(lo, hi))
+            ll[t, b, graph.em_pdf[ai]] += snr
+            s = int(graph.em_next[ai])
+    return ll
 
 
 def make_bench_model(

@@ -36,13 +36,34 @@ and prints no result line):
   8. FusedPipeline.run_scan at bench.py's operating point with B = 32:
      0.48 s chunks, 4 s per channel, lattice records on, plausible scores
      (make_plausible_loglikes, snr 2.0) through ll_bias; one warm-up drive,
-     then one timed drive with the counts zeroed just before.
+     then one timed drive with the counts zeroed just before;
+  9. a full-width Kaldi V2 directory written by the port's exporter from the
+     same AM (seed 0, one phone per pdf, phone 1 silence): final.mdl from
+     tdnnf_to_nnet3 with an i-vector input (dim 100, seeded non-zero
+     weights) grafted onto tdnn1.affine, an ivector/ dir at Kaldi's
+     run_ivector_common.sh dims (512-Gaussian UBM, splice +-3, LDA to 40,
+     i-vector dim 100, num-gselect 5, min-post 0.025, posterior-scale 0.1,
+     max-count 100), model.conf with silence weight 0.001, and the 2M-state
+     graph as HCLG.fst; the gather kernel at its shapes; Model(dir) +
+     KaldiRecognizer streams 10.5 s of noise (words, a partial every
+     second), counts zeroed just before; the i-vector must move off zero,
+     silence weighting must run, the frontier, records, AM history and
+     i-vector state must live on the card, and the stream run again with
+     the plain gather must give identical JSON; then the same directory
+     without the graft serves 8 x 3 s through BatchModel(max_batch_size=32);
+ 10. a split-graph directory (HCLr.fst + Gr.fst, export_kaldi_split_dir) from
+     the same AM with a seeded 1,000-word lexicon (2-5 phones each over the
+     6008 phones) and a word-loop Gr from graph/lm.py: the kernel at its
+     shapes, one 3 s stream on the main graph and one with the runtime
+     grammar '["w1 w2", "w3"]', whose words must lie in the grammar; the
+     kernel must launch in both.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Weights and audio come from fixed seeds;
 nothing is downloaded.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -247,6 +268,7 @@ def phase_serving(torch, bm):
     piece = p.chunk_samples * 2  # 0.2 s of PCM16
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
     gather_rows.launches = 0  # every kernel count, just before the main path
     t_all = time.perf_counter()
     recs = [vosk_tpu_torch.BatchRecognizer(bm, rate) for _ in range(N_REQUESTS)]
@@ -285,7 +307,8 @@ def phase_serving(torch, bm):
         f"{len(results)} JSON results, {len(step_s)} chunk steps; per-chunk step "
         f"p50 {np.median(steps) * 1e3:.3f} ms max {steps.max() * 1e3:.3f} ms; "
         f"wall {wall:.3f} s incl. finishing; {audio_s / wall:.3f} audio-s/s; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"({base:.3f} GiB allocated before the first request); "
         f"gather launches {launches}")
     log("results: " + json.dumps([x["text"][:40] for x in results]))
     return launches
@@ -347,6 +370,7 @@ def stream_long(model, pcm, rate):
             outs.append(check_schema(rec.PartialResult(), "partial"))
             partial_s.append(time.perf_counter() - t0)
     folded = r._folded_frames
+    on_card = on_card and all(v.is_cuda for v in r._am_state.values())
     t0 = time.perf_counter()
     outs.append(check_schema(rec.FinalResult(), "final"))
     final_s = time.perf_counter() - t0
@@ -356,7 +380,7 @@ def stream_long(model, pcm, rate):
         raise AssertionError("the 10.5 s stream never folded its record window")
     return outs, dict(accept=np.array(accept_s), partial=np.array(partial_s),
                       first_fold=first_fold_s, final=final_s, folded=folded,
-                      stages=rec.GetMetrics()["stages"])
+                      stages=rec.GetMetrics()["stages"], rec=r)
 
 
 def phase_streaming(torch, path):
@@ -466,6 +490,178 @@ def phase_run_scan(torch, bm):
     return launches
 
 
+def stage_line(stages) -> str:
+    return json.dumps({k: v["seconds"] for k, v in stages.items()})
+
+
+def phase_kaldi(torch, tmp):
+    """Phase 9: the full-width Kaldi directory with i-vectors, streaming
+    and batch.  Returns (streaming launches, batch launches, kernel shapes
+    of the path)."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
+    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from vosk_tpu_torch.utils import benchdata, kaldidata
+
+    t0 = time.perf_counter()
+    m = benchdata.make_bench_model(seed=SEED, device="cpu")
+    kaldidata.one_phone_per_pdf(m)
+    ivcfg = kaldidata.make_ivector_config(feat_dim=m.am_config.feat_dim, seed=SEED)
+    plain, ivdir = Path(tmp) / "kaldi_plain", Path(tmp) / "kaldi_ivector"
+    export_kaldi_dir(m, plain)
+    kaldidata.write_ivector_kaldi_dir(m, plain, ivdir, ivcfg, seed=SEED)
+    t_export = time.perf_counter() - t0
+    del m
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(ivdir), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    nm = model._model
+    t0 = time.perf_counter()
+    vosk_tpu_torch.KaldiRecognizer(model, 16000)  # builds the shared decoder
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    dec = nm.shared_decoder()
+    am = nm.make_am()
+    log(f"kaldi: export (nnet3 + ivector/ + {nm.graph.num_states}-state HCLG.fst after "
+        f"prep) {t_export:.3f} s; Model load {t_load:.3f} s (by stage "
+        f"{json.dumps({k: round(v, 3) for k, v in nm.load_seconds.items()})}); first "
+        f"KaldiRecognizer (prepare_graph_v4 + tables) {t_first:.3f} s; decoder S={dec.S} "
+        f"M={dec.M} K={dec.K}; AM context {am.left_context}/{am.right_context}, "
+        f"i-vector input {am.has_ivector}")
+    if not (am.has_ivector and nm.ivector is not None and nm.silence_weight == 0.001):
+        raise AssertionError("the Kaldi directory did not load its i-vector parts")
+    if not all(t.is_cuda for w in am.weights.values() for t in w.values()):
+        raise AssertionError("the nnet3 weights are not on the card")
+
+    pcm = noise_pcm(10.5, 16000, SEED + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather_rows.launches = 0  # every kernel count, just before the main path
+    outs, t = stream_long(model, pcm, 16000)
+    torch.cuda.synchronize()
+    launches = gather_rows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r = t["rec"]
+    if launches <= 0:
+        raise AssertionError("the Kaldi streaming path never launched the gather kernel")
+    if not all(v.is_cuda for v in r._iv_state.values()):
+        raise AssertionError("the i-vector state is not on the card")
+    iv = r.iv.current(r._iv_state)[0].cpu()
+    if not (torch.isfinite(iv).all() and iv.abs().max().item() > 0):
+        raise AssertionError(f"the i-vector did not move off zero: {iv[:5]}")
+    if r._iv_frames_weighted <= 0 or "ivector" not in t["stages"]:
+        raise AssertionError("i-vector silence weighting did not run")
+    dec._gather = gather_rows_plain
+    try:
+        plain_outs, _ = stream_long(model, pcm, 16000)
+    finally:
+        dec._gather = gather_rows
+    if plain_outs != outs:
+        raise AssertionError("the Kaldi stream differs between the kernel and the plain gather")
+    a = t["accept"]
+    log(f"kaldi streaming 10.5 s in 0.2 s pieces (B=1): AcceptWaveform p50 "
+        f"{np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms ({len(a)} pieces); "
+        f"PartialResult p50 {np.median(t['partial']) * 1e3:.3f} ms; first fold "
+        f"{t['first_fold'] * 1e3:.3f} ms; FinalResult {t['final'] * 1e3:.3f} ms; "
+        f"peak device memory {peak:.3f} GiB; gather launches {launches}; i-vector "
+        f"|x|max {iv.abs().max().item():.4f}, silence weighting scanned "
+        f"{r._iv_frames_weighted} frames; identical JSON with the plain gather "
+        f"({len(outs)} results)")
+    log("kaldi streaming stages (host s): " + stage_line(t["stages"]))
+    log("kaldi streaming result: " + json.dumps(json.loads(outs[-1])["text"][:60]))
+    shapes = (dec.K * dec.M, dec.K)
+    del model, nm, am, dec, r, t  # the batch phase's peak memory is its own
+    gc.collect()
+
+    t0 = time.perf_counter()
+    bm = vosk_tpu_torch.BatchModel(str(plain), max_batch_size=B, device="cuda")
+    torch.cuda.synchronize()
+    log(f"kaldi batch: BatchModel load (no i-vector graft) {time.perf_counter() - t0:.3f} s")
+    batch_launches = phase_serving(torch, bm)
+    del bm
+    return launches, batch_launches, shapes
+
+
+def stream_short(model, rate, seed, grammar=None):
+    """A 3 s noise stream in 0.2 s pieces with words on; returns (final
+    JSON, AcceptWaveform seconds, FinalResult seconds)."""
+    import numpy as np
+
+    import vosk_tpu_torch
+
+    args = () if grammar is None else (grammar,)
+    rec = vosk_tpu_torch.KaldiRecognizer(model, rate, *args)
+    rec.SetWords(True)
+    pcm = noise_pcm(3.0, rate, seed)
+    piece = int(0.2 * rate) * 2
+    accept = []
+    for off in range(0, len(pcm), piece):
+        t0 = time.perf_counter()
+        rec.AcceptWaveform(pcm[off: off + piece])
+        accept.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = check_schema(rec.FinalResult(), "final")
+    return json.loads(out), np.array(accept), time.perf_counter() - t0, rec
+
+
+def phase_split(torch, tmp):
+    """Phase 10: a split-graph directory and a runtime grammar on the card.
+    Returns (main-graph launches, grammar launches, decoders)."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_split_dir
+    from vosk_tpu_torch.ops.gather import gather_rows
+    from vosk_tpu_torch.utils import benchdata, kaldidata
+
+    t0 = time.perf_counter()
+    m = benchdata.make_bench_model(num_states=1000, num_words=10, seed=SEED, device="cpu")
+    kaldidata.one_phone_per_pdf(m)
+    kaldidata.make_lexicon_model(m, num_words=1000, seed=SEED)
+    path = Path(tmp) / "kaldi_split"
+    export_kaldi_split_dir(m, path)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(path), device="cuda")
+    t_load = time.perf_counter() - t0
+    grammar = '["w1 w2", "w3"]'
+    runs = {}
+    for name, g in (("main", None), ("grammar", grammar)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather_rows.launches = 0  # every kernel count, just before the path
+        t0 = time.perf_counter()
+        res, accept, final_s, rec = stream_short(model, 16000, SEED + 8, g)
+        torch.cuda.synchronize()
+        runs[name] = dict(res=res, accept=accept, final=final_s, wall=time.perf_counter() - t0,
+                          launches=gather_rows.launches, dec=rec._rec.dec,
+                          peak=torch.cuda.max_memory_allocated() / 2**30,
+                          stages=rec.GetMetrics()["stages"],
+                          on_card=rec._rec._frontier["state"].is_cuda)
+    words = set(runs["grammar"]["res"]["text"].split())
+    if not words <= {"w1", "w2", "w3"}:
+        raise AssertionError(f"grammar decode left the grammar: {runs['grammar']['res']}")
+    for name, run in runs.items():
+        if run["launches"] <= 0 or not run["on_card"]:
+            raise AssertionError(f"the {name} split-graph stream did not run on the kernel")
+    log(f"split graph: export (1000-word lexicon, HCLr + Gr) {t_export:.3f} s; Model load "
+        f"{t_load:.3f} s (by stage "
+        f"{json.dumps({k: round(v, 3) for k, v in model._model.load_seconds.items()})})")
+    for name, run in runs.items():
+        d, a = run["dec"], run["accept"]
+        log(f"split {name}: S={d.S} M={d.M} K={d.K} R={d.R}; 3 s in 0.2 s pieces, "
+            f"AcceptWaveform p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms "
+            f"(first piece includes recognizer setup); FinalResult "
+            f"{run['final'] * 1e3:.3f} ms; peak device memory {run['peak']:.3f} GiB; "
+            f"gather launches {run['launches']}; text "
+            f"{json.dumps(run['res']['text'][:60])}; stages {stage_line(run['stages'])}")
+    return runs["main"]["launches"], runs["grammar"]["launches"], (
+        runs["main"]["dec"], runs["grammar"]["dec"])
+
+
 def main() -> int:
     import torch
 
@@ -504,6 +700,20 @@ def main() -> int:
         max_err = max(max_err, b1_err)
         launches_streaming = phase_streaming(torch, Path(tmp) / "bench_model")
         launches_run_scan = phase_run_scan(torch, bm)
+        del bm
+        launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi) = phase_kaldi(torch, tmp)
+        kaldi_times, kaldi_err = phase_kernel(torch, dev, cases=(
+            ("kaldi_ll", "float32", 1, 6008, n_kaldi),
+            ("kaldi_tsil", "int32", 1, k_kaldi, k_kaldi),
+        ))
+        launches_split, launches_grammar, (d_main, d_gram) = phase_split(torch, tmp)
+        split_times, split_err = phase_kernel(torch, dev, cases=(
+            ("split_ll", "float32", 1, 6008, d_main.K * d_main.M),
+            ("split_tsil", "int32", 1, d_main.K, d_main.K),
+            ("grammar_ll", "float32", 1, 6008, d_gram.K * d_gram.M),
+            ("grammar_tsil", "int32", 1, d_gram.K, d_gram.K),
+        ))
+        max_err = max(max_err, kaldi_err, split_err)
 
     kernels = [{
         "name": "gather_rows",
@@ -522,6 +732,12 @@ def main() -> int:
         "b1_plain_ms": b1["b1_ll"][1],
         "b1_tsil_ms": b1["b1_tsil"][0],
         "b1_tsil_plain_ms": b1["b1_tsil"][1],
+        "launches_kaldi": launches_kaldi,
+        "launches_kaldi_batch": launches_kaldi_batch,
+        "launches_split": launches_split,
+        "launches_grammar": launches_grammar,
+        **{f"{k}_ms": v[0] for k, v in {**kaldi_times, **split_times}.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in {**kaldi_times, **split_times}.items()},
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,12 @@ vosk_tpu imports without jax: graph tables and transforms, grammar graphs
 (lexicon, topology, n-gram G), the v4 record adapter, the Python lattice
 and MBR, the native lattice binding, word-boundary realignment, the
 resampler, JSON output, endpoint rules, PCM conversion, the bench graph
-and scores, and the native model-dir format.  Each must give exactly what
-its source gives on the same input.
+and scores, and the native model-dir format; and, for Kaldi model
+directories, option files, Kaldi binary I/O, OpenFST graphs (vector, const
+and ngram), split-graph composition, the nnet3 parser/writer, the exporter
+(byte-identical files) and the loader (equal graphs and maps).  The
+i-vector dir reader/writer is held in tests/test_torch_ivector.py.  Each
+must give exactly what its source gives on the same input.
 """
 import dataclasses
 import json
@@ -191,13 +195,19 @@ def test_native_dir_roundtrip_both_ways(tmp_path):
 
 @pytest.mark.parametrize("extra", ["rescore.arpa", "rnnlm", "ivector"])
 def test_unported_model_parts_raise(tmp_path, extra):
+    """Rescoring resources raise at load; a native TDNN-F with an i-vector
+    input (an `ivector/` dir beside it is not read, as in the source)
+    raises when its AM is built.  Kaldi directories with i-vectors load
+    (tests/test_torch_kaldi_e2e.py)."""
     m = benchdata.make_bench_model(num_states=500, num_pdfs=20, hidden=16,
                                    max_active=100, num_words=10, device="cpu")
+    if extra == "ivector":
+        m.config.am["ivector_dim"] = 4
     native.save_model(tmp_path, m.config, m.am_params, m.graph, m.words,
                       m.phones, m.phone_of_pdf, m.silence_pdfs)
     (tmp_path / extra).mkdir()
     with pytest.raises(NotImplementedError):
-        native.load_model(tmp_path, device="cpu")
+        native.load_model(tmp_path, device="cpu").make_am()
 
 
 def _lattices_equal(a, b):
@@ -410,3 +420,254 @@ def test_stage_timers_and_logging_copy(capsys):
         assert tw == capsys.readouterr().err
     t_logging.set_log_level(0)
     j_logging.set_log_level(0)
+
+
+# ---- the Kaldi model-directory slice: option files, Kaldi binary I/O,
+# OpenFST graphs (vector, const, ngram), split-graph composition, the
+# nnet3 parser/writer, the exporter and the loader
+
+
+def test_config_copy():
+    from vosk_tpu.utils import config as j_config
+    from vosk_tpu_torch.utils import config
+
+    text = ("# comment\n--beam=11.5  # trailing\nmax-active=300\n--flag\n"
+            "--endpoint.silence-phones=1:2:3\n\n--frame-subsampling-factor=2\n")
+    assert config.parse_config_lines(text) == j_config.parse_config_lines(text)
+    raw = config.parse_config_lines(text)
+    from vosk_tpu.io.kaldi_loader import DecodeOptions as JOpts
+    from vosk_tpu_torch.io.kaldi_loader import DecodeOptions
+
+    a, b = DecodeOptions(), JOpts()
+    config.apply_options(a, raw)
+    j_config.apply_options(b, raw)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert (a.beam, a.max_active, a.frame_subsampling_factor) == (11.5, 300, 2)
+
+
+def test_kaldiio_copy():
+    import io as _io
+
+    from vosk_tpu.io import kaldiio as j_kio
+    from vosk_tpu_torch.io import kaldiio
+
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((12, 5)).astype(np.float32)
+    bufs = []
+    for mod in (kaldiio, j_kio):
+        buf = _io.BytesIO()
+        w = mod.BinaryWriter(buf)
+        w.write_token("<T>")
+        w.write_basic_int(-7)
+        w.write_basic_float(0.125)
+        w.write_bool(True)
+        w.write_int_vector([3, -1, 9])
+        w.write_vector(m[0])
+        w.write_matrix(m)
+        for fmt in (1, 2, 3):
+            w.write_compressed_matrix(m, fmt)
+        bufs.append(buf.getvalue())
+    assert bufs[0] == bufs[1]
+    reads = []
+    for mod in (kaldiio, j_kio):
+        r = mod.BinaryReader(_io.BufferedReader(_io.BytesIO(bufs[0])))
+        reads.append([r.read_token(), r.read_basic_int(), r.read_basic_float(),
+                      r.read_bool(), r.read_int_vector(), r.read_vector(),
+                      r.read_matrix(), r.read_matrix(), r.read_matrix(), r.read_matrix()])
+    for x, y in zip(*reads):
+        if isinstance(y, np.ndarray):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+
+
+def _std_fst(mod, seed=0, states=6):
+    rng = np.random.default_rng(seed)
+    f = mod.StdFst()
+    f.add_states(states)
+    f.set_start(0)
+    f.set_final(states - 1, 0.5)
+    for s in range(states):
+        for _ in range(int(rng.integers(0, 4))):
+            f.add_arc(s, int(rng.integers(0, 9)), int(rng.integers(0, 5)),
+                      float(np.float32(rng.uniform(0, 3))), int(rng.integers(0, states)))
+    return f
+
+
+def _write_const_fst(path, fst):
+    """An OpenFST ConstFst over StdArc (16-byte aligned states then arcs)."""
+    import struct
+
+    arcs = [a for s in range(fst.num_states) for a in fst.arcs[s]]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", 2125659606))
+        for s in ("const", "standard"):
+            f.write(struct.pack("<i", len(s)) + s.encode())
+        f.write(struct.pack("<iiQqqq", 2, 0, 0, fst.start, fst.num_states, len(arcs)))
+        f.write(b"\0" * (-f.tell() % 16))
+        pos = 0
+        for s in range(fst.num_states):
+            f.write(struct.pack("<fiii", fst.final[s], pos, len(fst.arcs[s]), 0))
+            pos += len(fst.arcs[s])
+        f.write(b"\0" * (-f.tell() % 16))
+        for il, ol, w, ns in arcs:
+            f.write(struct.pack("<iifi", il, ol, w, ns))
+
+
+def _write_ngram_fst(path):
+    """A three-state NGramFst (the fixture of tests/test_ngram_fst.py)."""
+    import struct
+
+    def words(bits):
+        b = np.concatenate([np.asarray(bits, np.uint8), np.zeros((-len(bits)) % 64, np.uint8)])
+        return np.packbits(b, bitorder="little").view("<u8").tobytes()
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", 2125659606))
+        for s in ("ngram", "standard"):
+            f.write(struct.pack("<i", len(s)) + s.encode())
+        f.write(struct.pack("<iiQqqq", 1, 0, 0, 0, 3, 0))
+        f.write(struct.pack("<QQQ", 3, 3, 2))
+        f.write(words([1, 0, 1, 1, 0, 0, 0]) + words([0, 1, 1, 0, 1, 0, 0])
+                + words([0, 1, 1, 0]))
+        f.write(np.asarray([0, 1, 2], "<i4").tobytes() + np.asarray([1, 2, 2], "<i4").tobytes())
+        f.write(np.asarray([0.0, 0.5, 0.7, 0.9, 1.1, 0.1, 0.2, 0.3], "<f4").tobytes())
+
+
+@pytest.mark.parametrize("kind", ["vector", "const", "ngram"])
+def test_read_fst_copy(tmp_path, kind):
+    from vosk_tpu.graph import fst as j_fst
+    from vosk_tpu.io import kaldi_models as j_km
+    from vosk_tpu_torch.graph import fst as t_fst
+    from vosk_tpu_torch.io import kaldi_export, kaldi_models
+
+    path = tmp_path / "g.fst"
+    if kind == "vector":
+        kaldi_export.write_fst_vector(path, _std_fst(t_fst))
+    elif kind == "const":
+        _write_const_fst(path, _std_fst(j_fst))
+    else:
+        _write_ngram_fst(path)
+    a, b = kaldi_models.read_fst(path), j_km.read_fst(path)
+    assert a.start == b.start
+    np.testing.assert_array_equal(a.finals, b.finals)
+    assert len(a.arcs_per_state) == len(b.arcs_per_state)
+    for x, y in zip(a.arcs_per_state, b.arcs_per_state):
+        np.testing.assert_array_equal(x, y)
+    _fsts_equal(kaldi_models.raw_fst_to_std(a), j_km.raw_fst_to_std(b))
+    assert sum(len(x) for x in a.arcs_per_state) > 0
+
+
+def _lexicon_models(tmp_path):
+    """The same small model in both packages (one phone per pdf, a lexicon,
+    a phrase-list G and the decoding graph built from them), in the layout
+    the Kaldi exporters take."""
+    from vosk_tpu.graph.fst import SymbolTable as JS
+    from vosk_tpu.models.tdnnf import TdnnfConfig as JCfg
+    from vosk_tpu_torch.models.tdnnf import TdnnfConfig, init_params
+
+    phrases = ["a b", "c d a", "b", "d c"]
+    out = []
+    for mb, mlm, mnat, Syms in ((builder, lm, native, SymbolTable),
+                                (j_builder, j_lm, j_native, JS)):
+        lex = _lexicon(mb, Syms, False)
+        g = mlm.grammar_to_fst(phrases, lex.words.find)
+        topo = mb.Topology(1, 0.6)
+        graph, _ = mb.build_decoding_graph(lex, g, topo)
+        P = len(lex.phones) - 1
+        cfg = TdnnfConfig(feat_dim=13, hidden_dim=16, bottleneck_dim=8, prefinal_dim=8,
+                          num_pdfs=P, time_strides=(1, 0, 3))
+        params = init_params(cfg, seed=4)
+        config = mnat.ModelConfig(am=dataclasses.asdict(cfg), beam=11.0, max_active=200,
+                                  frame_opts={"dither": 0.0}, mfcc_opts={"num_ceps": 13})
+        kw = dict(config=config, am_params=params, graph=graph, words=lex.words,
+                  phones=lex.phones, lexicon=lex, phone_of_pdf=np.arange(1, P + 1),
+                  silence_pdfs=np.array([0], np.int32), topology=topo)
+        m = mnat.NativeModel(**kw, **({"device": "cpu"} if mnat is native else {}))
+        if mnat is j_native:
+            assert dataclasses.asdict(m.am_config) == dataclasses.asdict(JCfg(**config.am))
+        m.g_fst = g
+        m.word_boundary = {1: "nonword", 2: "singleton", 3: "singleton", 4: "singleton"}
+        out.append(m)
+    return out
+
+
+@pytest.fixture(scope="module")
+def kaldi_dirs(tmp_path_factory):
+    """Both exporters' HCLG and split-graph directories of the same model."""
+    from vosk_tpu.io import kaldi_export as j_export
+    from vosk_tpu_torch.io import kaldi_export
+
+    root = tmp_path_factory.mktemp("kaldi_copies")
+    tm, jm = _lexicon_models(root)
+    for name, mod, m in (("t", kaldi_export, tm), ("j", j_export, jm)):
+        mod.export_kaldi_dir(m, root / f"{name}_hclg")
+        mod.export_kaldi_split_dir(m, root / f"{name}_split")
+    return root
+
+
+def test_kaldi_export_copy_byte_identical(kaldi_dirs):
+    for layout in ("hclg", "split"):
+        t, j = kaldi_dirs / f"t_{layout}", kaldi_dirs / f"j_{layout}"
+        files = sorted(p.relative_to(j) for p in j.rglob("*") if p.is_file())
+        assert files == sorted(p.relative_to(t) for p in t.rglob("*") if p.is_file())
+        assert len(files) >= 6
+        for f in files:
+            assert (t / f).read_bytes() == (j / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("layout", ["hclg", "split"])
+def test_kaldi_loader_copy(kaldi_dirs, layout):
+    from vosk_tpu.io.kaldi_loader import load_kaldi_model as j_load
+    from vosk_tpu_torch.io.kaldi_loader import load_kaldi_model
+
+    path = kaldi_dirs / f"j_{layout}"
+    a, b = load_kaldi_model(path, device="cpu"), j_load(path)
+    _graphs_equal(a.graph, b.graph)
+    assert dataclasses.asdict(a.config) == dataclasses.asdict(b.config)
+    np.testing.assert_array_equal(a.phone_of_pdf, b.phone_of_pdf)
+    np.testing.assert_array_equal(a.silence_pdfs, b.silence_pdfs)
+    np.testing.assert_array_equal(a.tid2pdf, b.tid2pdf)
+    assert a.word_boundary == b.word_boundary and a.word_boundary
+    assert a.disambig_tids == b.disambig_tids
+    assert (a.silence_weight, a.silence_weight_phones) == (b.silence_weight,
+                                                           b.silence_weight_phones)
+    assert (a.hcl_fst is None) == (b.hcl_fst is None) == (layout == "hclg")
+    am, jam = a.make_am(), b.make_am()
+    assert (am.left_context, am.right_context, am.subsample) == (
+        jam.left_context, jam.right_context, jam.subsample)
+    assert am.net.node_order == jam.net.node_order
+    for name, comp in jam.net.components.items():
+        assert type(am.net.components[name]).__name__ == type(comp).__name__
+        for k, v in vars(comp).items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(getattr(am.net.components[name], k), v)
+    if layout == "split":
+        from vosk_tpu.graph import lookahead as j_la
+        from vosk_tpu_torch.graph import lookahead
+
+        for phrases in (["a b"], ["c", "d a b"]):
+            g = lm.grammar_to_fst(phrases, a.words.find)
+            jg = j_lm.grammar_to_fst(phrases, b.words.find)
+            _graphs_equal(
+                lookahead.prepare_decode_fst(
+                    lookahead.lookahead_compose(a.hcl_fst, g, a.disambig_tids), a.tid2pdf),
+                j_la.prepare_decode_fst(
+                    j_la.lookahead_compose(b.hcl_fst, jg, b.disambig_tids), b.tid2pdf))
+
+
+def test_kaldi_word_boundary_and_conf_copies(tmp_path):
+    from vosk_tpu.io import kaldi_loader as j_kl
+    from vosk_tpu_torch.io import kaldi_loader
+
+    (tmp_path / "wb.int").write_text("1 nonword\n2 begin\n3 end\n\n4 singleton extra\n")
+    assert kaldi_loader.read_word_boundary(tmp_path / "wb.int") == \
+        j_kl.read_word_boundary(tmp_path / "wb.int")
+    raw = {"dither": "0", "frame-length": "25", "frame-shift": "10",
+           "preemphasis-coefficient": "0.97", "remove-dc-offset": "false",
+           "window-type": "hamming", "snip-edges": "true", "num-mel-bins": "40",
+           "low-freq": "20", "high-freq": "-400", "num-ceps": "40"}
+    assert kaldi_loader._frame_opts(raw) == j_kl._frame_opts(raw)
+    assert kaldi_loader._mel_opts(raw) == j_kl._mel_opts(raw)
+    assert kaldi_loader.is_kaldi_model_dir(tmp_path) == j_kl.is_kaldi_model_dir(tmp_path)

@@ -1,5 +1,6 @@
-"""vosk_tpu_torch on the card: the gather kernel, the decoder with it, and
-a streaming KaldiRecognizer decode.
+"""vosk_tpu_torch on the card: the gather kernel, the decoder with it, a
+streaming KaldiRecognizer decode, and a Kaldi-layout directory with
+i-vectors.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -123,3 +124,53 @@ def test_kaldi_recognizer_on_card(cuda_device, tmp_path):
     cpu_outs, _ = run("cpu")
     assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
         [json.loads(x).get("partial", json.loads(x).get("text")) for x in cpu_outs]
+
+
+def test_kaldi_dir_with_ivectors_on_card(cuda_device, tmp_path):
+    """A Kaldi V2 directory written by the port's exporter (nnet3 AM with an
+    i-vector input, ivector/, silence weighting) decodes on the card with
+    the kernel launched and the i-vector state on the device, word for word
+    as the same decode on the CPU."""
+    import json
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
+    from vosk_tpu_torch.runtime import native_lattice
+    from vosk_tpu_torch.utils import kaldidata
+    from vosk_tpu_torch.utils.benchdata import make_bench_model
+
+    native_lattice.build_library()
+    m = make_bench_model(num_states=20_000, num_pdfs=64, hidden=64, max_active=1024,
+                         num_words=500, seed=3, device="cpu")
+    kaldidata.one_phone_per_pdf(m)
+    ivcfg = kaldidata.make_ivector_config(m.am_config.feat_dim, num_gauss=32, ubm_dim=20,
+                                          ivector_dim=16, seed=3)
+    export_kaldi_dir(m, tmp_path / "plain")
+    kaldidata.write_ivector_kaldi_dir(m, tmp_path / "plain", tmp_path / "iv", ivcfg, seed=3)
+    pcm = (np.random.default_rng(1).standard_normal(4 * 16000) * 500).astype("<i2").tobytes()
+
+    def run(device):
+        rec = vosk_tpu_torch.KaldiRecognizer(
+            vosk_tpu_torch.Model(str(tmp_path / "iv"), device=device), 16000)
+        rec.SetWords(True)
+        outs = []
+        for i in range(0, len(pcm), 6400):
+            rec.AcceptWaveform(pcm[i: i + 6400])
+            outs.append(rec.PartialResult())
+        r = rec._rec
+        state_on = {k: v.device.type for k, v in r._iv_state.items()}
+        outs.append(rec.FinalResult())
+        return outs, r, state_on
+
+    before = gather_rows.launches
+    outs, r, state_on = run("cuda")
+    assert gather_rows.launches > before
+    assert set(state_on.values()) == {"cuda"}
+    assert r._iv_frames_weighted > 0
+    cpu_outs, _, _ = run("cpu")
+
+    def words(xs):
+        return [(json.loads(x).get("partial"), json.loads(x).get("text"),
+                 [w["word"] for w in json.loads(x).get("result", [])]) for x in xs]
+
+    assert words(outs) == words(cpu_outs)

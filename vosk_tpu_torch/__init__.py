@@ -1,7 +1,8 @@
 """vosk_tpu_torch — the PyTorch/CUDA port of vosk_tpu.
 
-The reference binding's surface (python/vosk/__init__.py) on native model
-directories: streaming recognition through `Model` / `KaldiRecognizer`,
+The reference binding's surface (python/vosk/__init__.py) on native and
+Kaldi (V1/V2, nnet3 + i-vectors + HCLG or HCLr/Gr) model directories:
+streaming recognition through `Model` / `KaldiRecognizer`,
 batch serving through `BatchModel` / `BatchRecognizer` (the reference's GPU
 batch pipeline), `SetLogLevel`, `GpuInit` and `GpuThreadInit`, with the
 same method names and JSON results as `vosk_tpu`.  Models live on

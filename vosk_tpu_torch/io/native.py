@@ -4,13 +4,16 @@ Port of `vosk_tpu/io/native.py` (`ModelConfig`, `EndpointRule`,
 `save_model`, `load_model`, `load_any`): the directory layout is the
 same, so a model saved by either package loads in both, lexicon and
 topology included.  `NativeModel`'s factories return the port's torch
-objects on the model's device.
+objects on the model's device.  `load_any` also opens Kaldi V1/V2 model
+directories (io/kaldi_loader.py), which converge on the same `NativeModel`
+with an nnet3 AM (`am_override`), an optional i-vector extractor and, for
+split graphs, the HCLr pieces runtime grammars recompose.
 
-The port serves native directories only.  A directory that asks for a part
-not ported yet raises instead of decoding without it: online pitch, an
-i-vector extractor (`ivector/`), LM rescoring (`rescore.arpa`, `rnnlm/`),
-or a Kaldi layout.  The graph LM `g.npz` is read only for rescoring, so it
-is left unread.
+A directory that asks for a part not ported yet raises instead of decoding
+without it: online pitch, LM rescoring (`rescore.arpa`, `rnnlm/`, a Kaldi
+`rescore/`), or a native TDNN-F with an i-vector input (at `make_am`).  As
+in the source, a native directory's `ivector/` is not read.  The graph LM
+`g.npz` is read only for rescoring, so it is left unread.
 """
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ CONFIG_NAME = "vosk_tpu_model.json"
 _UNPORTED = {
     "rescore.arpa": "ARPA LM rescoring",
     "rnnlm": "RNNLM rescoring",
-    "ivector": "online i-vectors",
 }
 # runtime-grammar decoders kept per model, least recently used dropped first
 # (the source's cache has no bound)
@@ -95,6 +97,7 @@ class NativeModel:
         device="cuda",
         lexicon: Optional[Lexicon] = None,
         topology: Optional[Topology] = None,
+        am_override=None,
     ):
         if config.pitch_opts is not None:
             raise NotImplementedError(
@@ -104,7 +107,9 @@ class NativeModel:
             raise ValueError("the batch path needs a model with a decoding graph")
         self.config = config
         self.device = torch.device(device)
-        self.am_config = TdnnfConfig(**config.am)
+        # a loaded nnet3 AM (Kaldi layouts) replaces the native TDNN-F
+        self.am_override = am_override
+        self.am_config = TdnnfConfig(**config.am) if config.am else None
         self.am_params = am_params
         self.graph = graph
         self.words = words
@@ -114,6 +119,14 @@ class NativeModel:
         self.lexicon = lexicon
         self.topology = topology if topology is not None else Topology()
         self.word_boundary = None  # phone -> position map (Kaldi layouts only)
+        self.global_cmvn_stats = None
+        self.ivector = None  # IvectorDirConfig (reference model.cc:247-263)
+        self.silence_weight = 1.0  # i-vector silence weighting (1.0 = off)
+        self.silence_weight_phones: set = set()
+        # split-graph resources (Kaldi HCLr/Gr dirs) for runtime grammars
+        self.hcl_fst = None
+        self.disambig_tids: list = []
+        self.tid2pdf = None
         self._decoder = None
         self._grammar_decoders: "OrderedDict[str, object]" = OrderedDict()
         self._decoder_lock = threading.Lock()
@@ -158,9 +171,25 @@ class NativeModel:
             return dec
 
     def make_am(self):
+        """The streaming acoustic model: the loaded nnet3 network (shared,
+        its weights already on the device) or a native TDNN-F."""
+        if self.am_override is not None:
+            return self.am_override
         from ..models.tdnnf import TdnnfModel
 
         return TdnnfModel(self.am_config, self.am_params, device=self.device)
+
+    def make_batch_am(self):
+        """`make_am` for the batch paths (BatchPipeline, FusedPipeline),
+        which carry no i-vector: a model with an i-vector input fails here,
+        at construction, where the source fails at its first chunk."""
+        am = self.make_am()
+        if getattr(am, "has_ivector", False):
+            raise ValueError(
+                "model expects an i-vector input, which the batch path does not "
+                "compute; serve it through Model + KaldiRecognizer"
+            )
+        return am
 
     def feature_extractor(self) -> F.FeatureExtractor:
         fo = F.FrameOptions(samp_freq=self.config.sample_rate, **self.config.frame_opts)
@@ -176,9 +205,16 @@ class NativeModel:
             return default_endpoint_rules()
         return [EndpointRule(**r) for r in self.config.endpoint_rules]
 
-    def make_ivector_extractor(self):
-        """None: directories with `ivector/` raise at load (ROADMAP A8)."""
-        return None
+    def make_ivector_extractor(self, chunk_frames: int = 32):
+        """Online i-vector extractor on the model's device when the model
+        ships an ivector/ dir (reference model.cc:247-263); None
+        otherwise."""
+        if self.ivector is None:
+            return None
+        from ..ops.ivector import OnlineIvectorExtractor
+
+        return OnlineIvectorExtractor(self.ivector, chunk_frames=chunk_frames,
+                                      device=self.device)
 
     def find_word(self, word: str) -> int:
         """vosk_model_find_word parity (vosk_api.h:69-74)."""
@@ -257,9 +293,15 @@ def _read_lexicon(path, words, phones, silence_phone, silence_cost) -> Lexicon:
 
 
 def load_any(path, device="cuda") -> NativeModel:
-    """A model dir of any layout the port reads: native directories only
-    (the source also probes Kaldi layouts, which raise here)."""
-    return load_model(path, device=device)
+    """Load a model dir of any supported layout: the native format or
+    Kaldi V1/V2 layouts (reference model.cc:106-128 probing)."""
+    if (Path(path) / CONFIG_NAME).exists():
+        return load_model(path, device=device)
+    from .kaldi_loader import is_kaldi_model_dir, load_kaldi_model
+
+    if is_kaldi_model_dir(path):
+        return load_kaldi_model(path, device=device)
+    return load_model(path, device=device)  # raises the standard error
 
 
 def load_model(path, device="cuda") -> NativeModel:
@@ -267,8 +309,8 @@ def load_model(path, device="cuda") -> NativeModel:
     cfg_path = p / CONFIG_NAME
     if not cfg_path.exists():
         raise FileNotFoundError(
-            f"Folder '{path}' does not contain a native vosk_tpu model "
-            f"({CONFIG_NAME}); Kaldi layouts are not ported yet"
+            f"Folder '{path}' does not contain model files. Make sure you "
+            "specified the model path properly."
         )
     for name, what in _UNPORTED.items():
         if (p / name).exists():

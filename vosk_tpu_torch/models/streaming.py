@@ -2,9 +2,10 @@
 
 Port of `vosk_tpu/models/streaming.py` (`init_stream_state`,
 `_process_chunk_impl`, `_flush_impl` as `flush`).  Any module exposing
-`forward(window [B, W, D]) -> [B, ceil(W/ss), P]` with known left/right
-context and subsampling gets chunked streaming with carried feature
-history, masked per-channel advance, and end-of-stream flush.  State
+`forward(window [B, W, D], ivector [B, I] or None) -> [B, ceil(W/ss), P]`
+with known left/right context and subsampling gets chunked streaming with
+carried feature history, masked per-channel advance, and end-of-stream
+flush.  The optional i-vector is passed through to every forward.  State
 tensors live on the model's device.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 class StreamingAm:
     """Mixin: the subclass provides `feat_dim`, `subsample`, `left_context`,
-    `right_context`, `device` and `forward(window)`."""
+    `right_context`, `device` and `forward(window, ivector=None)`."""
 
     feat_dim: int
     subsample: int
@@ -39,7 +40,7 @@ class StreamingAm:
     def stream_max_out(self, chunk_frames: int) -> int:
         return chunk_frames // self.subsample + 1
 
-    def _process_chunk_impl(self, state, feats, valid):
+    def _process_chunk_impl(self, state, feats, valid, ivector=None):
         B, F, D = feats.shape
         hist, hist_len = state["hist"], state["hist_len"]
         H = hist.shape[1]
@@ -79,7 +80,7 @@ class StreamingAm:
         widx = torch.clamp(wcol + off[:, None], 0, H - 1)
         window = take_rows(hist, widx)
 
-        out = self.forward(window)
+        out = self.forward(window, ivector)
         out = out[:, Lp // ss : Lp // ss + O]
 
         out_valid = torch.arange(O, dtype=torch.int32, device=dev)[None, :] < n_out[:, None]
@@ -117,9 +118,9 @@ class StreamingAm:
         pad_valid = torch.arange(P, device=hist.device)[None, :] < need[:, None]
         return pad_feats, pad_valid
 
-    def _flush_impl(self, state):
+    def _flush_impl(self, state, ivector=None):
         pad_feats, pad_valid = self.flush_inputs(state)
-        return self._process_chunk_impl(state, pad_feats, pad_valid)
+        return self._process_chunk_impl(state, pad_feats, pad_valid, ivector)
 
     # end-of-stream flush of every channel (the streaming recognizer's
     # B = 1 state), under the source's name

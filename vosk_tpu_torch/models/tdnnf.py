@@ -98,7 +98,8 @@ class TdnnfModel(nn.Module, StreamingAm):
         super().__init__()
         if cfg.ivector_dim:
             raise NotImplementedError(
-                "i-vector inputs are not ported yet (vosk_tpu/ops/ivector.py)"
+                "native TDNN-F models with an i-vector input are not ported; "
+                "Kaldi nnet3 models with one load through models/am.py Nnet3Am"
             )
         self.cfg = cfg
         self.bf16 = cfg.compute_dtype == "bfloat16"
@@ -119,8 +120,9 @@ class TdnnfModel(nn.Module, StreamingAm):
             x = x.to(torch.bfloat16).to(torch.float32)
         return torch.matmul(x, w)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        """feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs]."""
+    def forward(self, feats: torch.Tensor, ivector=None) -> torch.Tensor:
+        """feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs]
+        (`ivector` is always None: the model has no i-vector input)."""
         cfg, p, mm = self.cfg, self.params, self._mm
         x = _splice(feats, (-1, 0, 1))
         x = mm(x, p["tdnn1_w"]) + p["tdnn1_b"]

@@ -25,8 +25,15 @@ keys rely on int32 wraparound, which torch's int32 arithmetic keeps.
 
 The JAX package's ragged bucket ladder (`_frame_step_v4_ragged`) is not
 ported: it is bit-equal to the full-K step (tests/test_viterbi_v4.py).
-Graphs that are not v4-eligible (epsilon rounds, out-degree above 16,
-pdf ids of 15 bits or more) raise.  Lattice records are always written.
+Where `prepare_graph_v4` leaves an out-degree above 16 (composed split
+graphs and word loops, whose degree capping does not converge), the source
+switches to its CSR decoder; the port keeps the v4 step over wider padded
+rows, the same search as the source's v4 step with `padded_max_out`
+raised (tests/test_torch_kaldi_e2e.py holds the JSON to the source's CSR
+decode), as long as the padded table stays within PADDED_MAX_SLOTS.
+Graphs that are not v4-eligible (epsilon rounds, a padded table above that
+bound, pdf ids of 15 bits or more) raise.  Lattice records are always
+written.
 """
 from __future__ import annotations
 
@@ -56,10 +63,12 @@ NS_MASK = (1 << 30) - 1
 PM_SIL_FLAG = 1 << 30
 PM_IDENT_FLAG = 1 << 29
 PM_MASK = (1 << 29) - 1
-# the source's defaults: padded layout up to out-degree 16 (after
-# prepare_graph_v4 with M=4 the degree is 4 or 8); dedup among the
-# 2K cheapest candidates
-PADDED_MAX_OUT = 16
+# padded layout for any out-degree whose [S+1, M] table has at most 2^26
+# slots (after prepare_graph_v4 with M=4 the degree is 4 or 8 on most
+# graphs; the source's padded limit is 16, above which it takes its CSR
+# decoder, not ported); dedup among the 2K cheapest candidates, the
+# source's default
+PADDED_MAX_SLOTS = 1 << 26
 DEDUP_SLACK = 2.0
 
 
@@ -124,12 +133,14 @@ class BatchViterbi:
         K = min(params.max_active, max(S, 1))
         self.K = K
         eps_iters = graph.eps_depth if graph.num_eps_arcs > 0 else 0
-        if not (0 < graph.max_em_out <= PADDED_MAX_OUT) or eps_iters != 0:
+        slots = (S + 1) * graph.max_em_out
+        if not (0 < graph.max_em_out and slots <= PADDED_MAX_SLOTS) or eps_iters != 0:
             raise ValueError(
-                "the v4 step needs an eps-free graph with out-degree in "
-                f"[1, {PADDED_MAX_OUT}] (got max_em_out={graph.max_em_out}, "
-                f"eps_depth={eps_iters}); run with optimize_graph=True.  The v3 "
-                "and CSR decoders are not ported"
+                "the v4 step needs an eps-free graph whose padded table "
+                f"[S+1, max_em_out] has at most {PADDED_MAX_SLOTS} slots (got "
+                f"S={S}, max_em_out={graph.max_em_out}, eps_depth={eps_iters}); "
+                "run with optimize_graph=True.  The v3 and CSR decoders are not "
+                "ported (ROADMAP A9, A12)"
             )
         self.M = max(graph.max_em_out, 1)
         self.E = K * self.M

@@ -54,7 +54,7 @@ class BatchPipeline:
         self.reset_on_endpoint = reset_on_endpoint
         self.rules = model.endpoint_rules()
         self.ex = model.feature_extractor()
-        self.am = model.make_am()
+        self.am = model.make_batch_am()
         self.dec = model.shared_decoder()
         self._finisher = Finisher(model, self.dec)
         self.rate = model.config.sample_rate
@@ -248,7 +248,7 @@ class BatchModel:
         from ..io import native
 
         path = _resolve_model_path(model_path, model_name, lang)
-        self._model = native.load_model(path, device=device)
+        self._model = native.load_any(path, device=device)
         self._pipeline = BatchPipeline(self._model, max_batch_size)
 
     def Wait(self) -> None:

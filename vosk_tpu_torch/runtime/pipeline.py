@@ -33,7 +33,7 @@ class FusedPipeline:
         self.device = model.device
         self.B = batch
         self.ex = model.feature_extractor()
-        self.am = model.make_am()
+        self.am = model.make_batch_am()
         self.dec = model.shared_decoder()
         self.rate = model.config.sample_rate
         self.chunk_samples = int(chunk_seconds * self.rate)

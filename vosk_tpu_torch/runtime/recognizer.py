@@ -1,6 +1,7 @@
 """Streaming Recognizer in PyTorch: the state machine of the reference
 Recognizer (src/recognizer.h:43, src/recognizer.cc) over the port's
-features -> TDNN-F -> v4 token passing.
+features -> acoustic model (native TDNN-F or a Kaldi nnet3 network, with
+online i-vectors when the model ships them) -> v4 token passing.
 
 Port of `vosk_tpu/runtime/recognizer.py`: states INITIALIZED / RUNNING /
 ENDPOINT / FINALIZED (recognizer.h:36-41), endpoint rules, 0.2 s chunking
@@ -9,15 +10,20 @@ timestamps (recognizer.cc:196-223, 457-458), resampling of input at another
 rate, bounded streaming memory (old record chunks fold into a frozen
 best-path prefix and a spliced prefix lattice), and the JSON results.
 
-The feature, AM and decoder states and the decoder records stay on the
-model's device as B = 1 tensors.  The host reads back once per chunk: one
-small tensor with the chunk's decoded-frame count, the best and best-final
-costs and the best token's trailing-silence word.  Results read the records
-they need.  Recognizers of one model share its decoder
-(`NativeModel.shared_decoder`), as the reference shares its Model.
+The feature, i-vector, AM and decoder states and the decoder records stay
+on the model's device as B = 1 tensors.  The host reads back once per
+chunk: one small tensor with the chunk's decoded-frame count, the best and
+best-final costs, the best token's trailing-silence word and, with
+i-vectors, the extractor's count of accumulated frames.  Decoded-silence
+weighting of the i-vector statistics (reference recognizer.cc:226-237)
+traces back the newest chunk once per `AcceptWaveform`, as the source
+does.  Results read the records they need.  Recognizers of one model share
+its decoder (`NativeModel.shared_decoder`), as the reference shares its
+Model.  Runtime grammars recompile L o G from a native model's lexicon, or
+recompose HCLr o G on a split-graph Kaldi model.
 
-Not ported: the i-vector and speaker (x-vector) branches; a speaker model
-raises (ROADMAP A8, A11).
+Not ported: the speaker (x-vector) branch; a speaker model raises
+(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -73,7 +79,8 @@ class Recognizer:
         self._resampler = None
 
         self.graph = model.graph
-        self._grammar_info = None
+        # the grammar string, once a runtime-grammar graph is built from it
+        self._grammar_key = None
         if grammar is not None:
             self._build_grammar_graph(grammar)
 
@@ -85,8 +92,8 @@ class Recognizer:
         # the model's shared decoder (v4 step, packed16 rows, lattice
         # records), one per runtime grammar
         self.dec = model.shared_decoder(
-            graph=self.graph if self._grammar_info is not None else None,
-            cache_key=grammar if self._grammar_info is not None else None,
+            graph=self.graph if self._grammar_key is not None else None,
+            cache_key=self._grammar_key,
         )
         from .finishing import Finisher
 
@@ -101,6 +108,21 @@ class Recognizer:
         # fixed device chunk: 0.2 s of samples (recognizer.cc:305)
         self.chunk_samples = int(0.2 * self.model_rate)
         self.max_feat_frames = self.ex.stream_max_frames(self.chunk_samples)
+
+        # online i-vector extractor + decoded-silence weighting
+        # (reference model.cc:247-263, recognizer.cc:226-237)
+        self.iv = model.make_ivector_extractor(chunk_frames=self.max_feat_frames)
+        self._silence_weight = float(model.silence_weight)
+        swp = model.silence_weight_phones
+        self._silence_weight_pdfs = (
+            {
+                int(pdf)
+                for pdf in range(len(model.phone_of_pdf))
+                if int(model.phone_of_pdf[pdf]) in swp
+            }
+            if swp
+            else {int(x) for x in np.asarray(model.silence_pdfs)}
+        )
 
         # result options
         self.words_ = False
@@ -123,9 +145,13 @@ class Recognizer:
     # ------------------------------------------------------------- setup
 
     def _build_grammar_graph(self, grammar: str) -> None:
-        """Runtime phrase-list graph (reference recognizer.cc:49-98):
-        L o G recompiled from the model's lexicon."""
-        if self.model.lexicon is None:
+        """Runtime phrase-list graph (reference recognizer.cc:49-98).
+
+        Native models recompile L o G from their lexicon; split-graph Kaldi
+        models (HCLr/Gr) recompose HCLr with a phrase-list G, the
+        reference's LookaheadComposeFst(hcl, g, disambig) path."""
+        hcl_fst = self.model.hcl_fst
+        if self.model.lexicon is None and hcl_fst is None:
             log_warn("Runtime graphs are not supported by this model")
             return
         try:
@@ -136,13 +162,25 @@ class Recognizer:
             log_warn(f"Expecting array of strings, got: '{grammar}'")
             return
         g = grammar_to_fst([str(p) for p in phrases], self.model.words.find)
-        self.graph, self._grammar_info = build_decoding_graph(
-            self.model.lexicon, g, self.model.topology
-        )
+        if self.model.lexicon is not None:
+            self.graph, _ = build_decoding_graph(
+                self.model.lexicon, g, self.model.topology
+            )
+        else:
+            # the source builds this graph and then decodes with the main
+            # graph's decoder (ROADMAP C); the port decodes with this one
+            from ..graph.lookahead import lookahead_compose, prepare_decode_fst
+
+            fst = lookahead_compose(hcl_fst, g, self.model.disambig_tids)
+            self.graph = prepare_decode_fst(fst, self.model.tid2pdf)
+        self._grammar_key = grammar
 
     def _init_pipeline(self) -> None:
         self._feat_state = self.ex.init_stream_state(1, self.chunk_samples)
         self._am_state = self.am.init_stream_state(1, self.max_feat_frames)
+        self._iv_state = self.iv.init_state(1) if self.iv is not None else None
+        self._iv_frames_weighted = 0    # silence weighting high-water mark
+        self._iv_centers_done = 0       # the extractor's count, read per chunk
         self._frontier = self.dec.init_frontier(1)
         self._reset_utterance_records()
         self._pending = np.zeros(0, np.float32)
@@ -227,9 +265,14 @@ class Recognizer:
                 n_samples=torch.full((1,), n_valid, dtype=torch.int32,
                                      device=self.device),
             )
+        ivec = None
+        if self.iv is not None:
+            with self.metrics.timer("ivector"):
+                self._iv_state = self.iv.update(self._iv_state, feats, fvalid)
+                ivec = self.iv.current(self._iv_state)
         with self.metrics.timer("acoustic_model"):
             self._am_state, ll, lvalid = self.am.process_chunk(
-                self._am_state, feats, fvalid
+                self._am_state, feats, fvalid, ivec
             )
         self._decode(ll, lvalid)
 
@@ -239,12 +282,15 @@ class Recognizer:
                 self._frontier, ll, lvalid
             )
             # the chunk's one host read: decoded frames, best and best-final
-            # cost, and the best token's packed trailing-silence word
-            # (float64 holds each of them exactly)
-            head = to_host(torch.stack([
+            # cost, the best token's packed trailing-silence word and the
+            # i-vector frames accumulated (float64 holds each exactly)
+            vals = [
                 lvalid[0].sum().double(), best[0].double(), bestf[0].double(),
                 self.dec.best_tsil(self._frontier)[0].double(),
-            ]))
+            ]
+            if self.iv is not None:
+                vals.append(self._iv_state["centers_done"][0].double())
+            head = to_host(torch.stack(vals))
         n = int(head[0])
         self._records.append(recs)
         self._rec_frames.append(n)
@@ -253,6 +299,8 @@ class Recognizer:
         self._best_final_cost = float(np.float32(head[2]))
         trailing, speech = split_tsil(np.array([int(head[3])]))
         self._trailing, self._has_speech = int(trailing[0]), bool(speech[0])
+        if self.iv is not None:
+            self._iv_centers_done = int(head[4])
         if self._utt_frames - self._folded_frames > self.max_window_frames:
             with self.metrics.timer("fold"):
                 self._fold_records()
@@ -351,6 +399,16 @@ class Recognizer:
             return None
         return self._fold_init[0]
 
+    def _last_chunk_init_states(self):
+        """[K] state row just before the NEWEST record chunk (for the
+        silence-weighting traceback over that chunk alone)."""
+        if len(self._records) >= 2:
+            return to_host(self._records[-2]["state"][-1, 0])
+        win = self._window_init_states()
+        # single retained chunk at utterance start: the decoder's initial
+        # closure is the preceding frontier
+        return win if win is not None else self.dec._init_states
+
     def _full_traceback(self, use_final: bool):
         """Best path over the whole utterance: frozen prefix + retained
         window.  Returns (cost, ols_frames, pdfs) in utterance frames."""
@@ -377,7 +435,11 @@ class Recognizer:
             self._process_chunk(self._pending, len(self._pending))
             self._pending = np.zeros(0, np.float32)
         if input_finished and not self._flushed:
-            self._am_state, ll, lvalid = self.am.flush(self._am_state)
+            ivec = None
+            if self.iv is not None:
+                self._iv_state = self.iv.flush(self._iv_state)
+                ivec = self.iv.current(self._iv_state)
+            self._am_state, ll, lvalid = self.am.flush(self._am_state, ivec)
             self._decode(ll, lvalid)
             self._flushed = True
 
@@ -389,6 +451,14 @@ class Recognizer:
         at recognizer.cc:318)."""
         if self._utt_frames == 0:
             return False
+        if self.iv is not None and self._silence_weight != 1.0 and self._records:
+            # silence weighting needs a frame alignment; a traceback over
+            # just the newest chunk is O(chunk), not O(utterance)
+            _, _, pdfs = self.dec.traceback_with_frames(
+                [self._records[-1]], self._frontier, 0, use_final=False,
+                at_start=False, init_states=self._last_chunk_init_states(),
+            )
+            self._update_silence_weights(pdfs, self._utt_frames - len(pdfs))
         rel = self._best_final_cost - self._best_cost
         return ep.endpoint_detected(
             self.rules,
@@ -398,6 +468,35 @@ class Recognizer:
             self.frame_shift,
             self._has_speech,
         )
+
+    def _update_silence_weights(self, pdfs, frames_before: int = 0) -> None:
+        """Downweight i-vector stats on frames the decoder aligned to
+        silence (reference UpdateSilenceWeights, recognizer.cc:226-237).
+        pdfs: best-path alignment of the utterance's decode frames starting
+        at utterance frame `frames_before`.  The extractor's frame count
+        comes from the chunk's host read (`_decode`)."""
+        if self.iv is None or self._silence_weight == 1.0 or not pdfs:
+            return
+        ss = self.am.subsample
+        n_feat = self._iv_centers_done
+        sil = self._silence_weight_pdfs
+        ids, ws = [], []
+        for f in range(self._iv_frames_weighted, n_feat):
+            d = f // ss - self.frame_offset_ - frames_before
+            if 0 <= d < len(pdfs) and pdfs[d] in sil:
+                ids.append(f)
+                ws.append(self._silence_weight)
+        self._iv_frames_weighted = n_feat
+        if ids:
+            # fixed width, as the source pads it for its jitted reweight
+            N = self.iv.ring
+            ids = (ids + [-1] * N)[:N]
+            ws = (ws + [1.0] * N)[:N]
+            self._iv_state = self.iv.reweight(
+                self._iv_state,
+                np.asarray([ids], np.int32),
+                np.asarray([ws], np.float32),
+            )
 
     # ----------------------------------------------------------- results
 

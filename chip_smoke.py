@@ -6,33 +6,41 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the gather kernel (csrc/gather.cu, nvcc) and, if absent, the
-     native lattice library (make -C core libvosk_tpu_core.so);
-  3. the kernel against its plain PyTorch version on the card, bit for bit,
-     at both decoder shapes plus a ragged N, index P-1 and out-of-range
-     indices, with both times;
+  2. build the kernel library (every csrc/*.cu, one nvcc each, in
+     parallel, linked into one .so) and print ptxas's registers, shared
+     memory and spills per kernel; build, if absent, the native lattice
+     library (make -C core libvosk_tpu_core.so);
+  3. the gather kernel against its plain PyTorch version on the card, bit
+     for bit, at the shapes its v4 call sites had plus a ragged N, index
+     P-1 and out-of-range indices, with its time, the plain time and one
+     torch.gather call's;
   4. generate the full-width bench model (TDNN-F 40/512/96/192/6008, 11
      layers, bf16; a 2M-state realistic graph with 100k words), save it as
      a native model dir and open it with BatchModel(max_batch_size=32);
      check features + AM on the card against the same modules on the CPU,
-     and a few full-width decoder chunks three ways (kernel, plain gather
-     on the same CUDA tensors, CPU): frontier and all five record planes
-     must be bit-equal;
+     and a few full-width decoder chunks three ways (the frame-step
+     kernels, their plain versions on the same CUDA tensors, CPU):
+     frontier and all five record planes must be bit-equal; then the two
+     frame-step kernels (expand_v4, select_tail_v4) against their plain
+     versions, bit for bit, on one real frame at B = 32 and at B = 1
+     (K = 7000, M = 4, R = 7000), with kernel, plain and bound times, and
+     expand's two ways of reading the ll row, five times each, interleaved;
   5. serve 8 requests of 3 s seeded noise through BatchRecognizer in 0.2 s
      pieces, with every launch count zeroed just before; every Result()
-     must be JSON with a text field, the kernel must have launched, and
-     the frontier and records must live on the card;
-  6. the kernel at the streaming recognizer's B = 1 shapes against its
-     plain version, bit for bit, with both times;
+     must be JSON with a text field, both frame-step kernels must have
+     launched (the gather kernel no longer runs there), and the frontier
+     and records must live on the card;
+  6. the gather kernel at the streaming recognizer's B = 1 shapes against
+     its plain version, bit for bit, with the times;
   7. streaming on the same model directory through Model(dir,
      device="cuda") + KaldiRecognizer, counts zeroed just before: a 10.5 s
      stream in 0.2 s pieces with words on and a PartialResult every second
      (it must fold its record window at least once), a 3 s stream at 8000
      Hz through the resampler, and a 3 s stream with 3 alternatives; every
-     result must have the source's JSON schema, the kernel must have
-     launched, the frontier and records must live on the card, and the
-     10.5 s stream run again with the plain gather must give identical
-     JSON;
+     result must have the source's JSON schema, both frame-step kernels
+     must have launched, the frontier and records must live on the card,
+     and the 10.5 s stream run again with the plain versions must give
+     identical JSON;
   8. FusedPipeline.run_scan at bench.py's operating point with B = 32:
      0.48 s chunks, 4 s per channel, lattice records on, plausible scores
      (make_plausible_loglikes, snr 2.0) through ll_bias; one warm-up drive,
@@ -49,15 +57,18 @@ and prints no result line):
      second), counts zeroed just before; the i-vector must move off zero,
      silence weighting must run, the frontier, records, AM history and
      i-vector state must live on the card, and the stream run again with
-     the plain gather must give identical JSON; then the same directory
+     the plain versions must give identical JSON; then the same directory
      without the graft serves 8 x 3 s through BatchModel(max_batch_size=32);
  10. a split-graph directory (HCLr.fst + Gr.fst, export_kaldi_split_dir) from
      the same AM with a seeded 1,000-word lexicon (2-5 phones each over the
-     6008 phones) and a word-loop Gr from graph/lm.py: the kernel at its
-     shapes, one 3 s stream on the main graph and one with the runtime
-     grammar '["w1 w2", "w3"]', whose words must lie in the grammar; the
-     kernel must launch in both.
-The line before the last is the kernel table as JSON; the last line is
+     6008 phones) and a word-loop Gr from graph/lm.py: the gather kernel at
+     its shapes, one 3 s stream on the main graph and one with the runtime
+     grammar '["w1 w2", "w3"]', whose words must lie in the grammar; both
+     frame-step kernels must launch in both; then both against their plain
+     versions on a real frame of each graph (M = 266; K = 124), with times.
+The line before the last is the kernel table as JSON (bounds from the
+bytes and operations each call's data needs, over the H100 SXM data
+sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
 {"ok": true, "device": {...}}.  Weights and audio come from fixed seeds;
 nothing is downloaded.
 """
@@ -76,6 +87,8 @@ SEED = 0
 B = 32
 N_REQUESTS = 8
 REQUEST_SECONDS = 3.0
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -102,6 +115,44 @@ def event_ms(torch, fn, n=100):
 
 def bits(torch, x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def bit_err(torch, a, b):
+    """Largest distance between the 32-bit patterns of a and b (0 iff
+    bit-equal): the kernels are held to their plain versions bit for bit."""
+    return int((bits(torch, a).long() - bits(torch, b).long()).abs().max().item()) \
+        if a.numel() else 0
+
+
+def bound(nbytes, ops=0):
+    """(least milliseconds the card could take, what bounds it)."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def zero_counts():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from vosk_tpu_torch.ops.frame_step import expand_v4, select_tail_v4
+    from vosk_tpu_torch.ops.gather import gather_rows
+
+    expand_v4.launches = select_tail_v4.launches = gather_rows.launches = 0
+
+
+def read_counts(what):
+    """{kernel: launches} since zero_counts(); raises unless both
+    frame-step kernels launched."""
+    from vosk_tpu_torch.ops.frame_step import expand_v4, select_tail_v4
+    from vosk_tpu_torch.ops.gather import gather_rows
+
+    counts = {"expand_v4": expand_v4.launches, "select_tail_v4": select_tail_v4.launches,
+              "gather_rows": gather_rows.launches}
+    if counts["expand_v4"] <= 0 or counts["select_tail_v4"] <= 0:
+        raise AssertionError(f"{what} did not launch both frame-step kernels: {counts}")
+    return counts
+
+
+def count_line(counts) -> str:
+    return ", ".join(f"{k} launches {v}" for k, v in counts.items())
 
 
 def phase_kernel(torch, dev, cases=(
@@ -134,10 +185,121 @@ def phase_kernel(torch, dev, cases=(
         max_err = max(max_err, (got.double() - ref.double()).abs().max().item())
         ms = event_ms(torch, lambda: gather_rows(table, idx))
         plain_ms = event_ms(torch, lambda: gather_rows_plain(table, idx))
-        results[name] = (ms, plain_ms)
+        # the library yardstick: one bare torch.gather, on the same indices
+        # clamped into [0, P) (it asserts on the out-of-range ones)
+        idx_long = idx.clamp(0, P - 1).long()
+        lib_ms = event_ms(torch, lambda: torch.gather(table, 1, idx_long))
+        # the table entries the indices reach, each index, each output
+        inb = (idx >= 0) & (idx < P)
+        reached = sum(int(torch.unique(row[m]).numel()) for row, m in zip(idx, inb))
+        b_ms, b_by = bound(4 * reached + 8 * b * N)
+        results[name] = (ms, plain_ms, b_ms, b_by, lib_ms)
         log(f"gather {name} [{b},{P}] <- [{b},{N}] {dtype}: bit-equal; "
-            f"kernel {ms:.6f} ms, torch.gather plain {plain_ms:.6f} ms")
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, torch.gather {lib_ms:.6f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
     return results, max_err
+
+
+def expand_work(torch, dec, fr, P):
+    """(bytes, operations) that expand_v4 must move and do on frontier fr:
+    every token state; cost and arc row (pdf words of all M slots, next
+    states of the finite arcs) of each live token; the ll entries those
+    finite arcs reach, once per channel; the three [B, K*M] outputs."""
+    Bn, K = fr["state"].shape
+    M, S = dec.M, dec.S
+    live = fr["state"] != S
+    b_of = torch.nonzero(live)[:, 0]
+    p1 = dec.em_pack[fr["state"][live].long()][:, :M]
+    finite = ((p1 >> 16) & 0x7C00) != 0x7C00  # f16 exponent not all ones
+    pdf = p1 & 0x3FFF
+    hit = finite & (pdf < P)
+    reached = torch.unique(b_of[:, None].expand_as(pdf)[hit].long() * (1 << 14) + pdf[hit])
+    n_live, n_fin = int(live.sum()), int(finite.sum())
+    nbytes = (4 * Bn * K + 4 * n_live + 4 * M * n_live + 4 * n_fin + 4 * reached.numel()
+              + 12 * Bn * K * M)
+    return nbytes, 3 * n_fin  # an add and a fused multiply-add per finite arc
+
+
+def tail_work(torch, K2, valid, rec, mbits):
+    """(bytes, operations) that select_tail_v4 must move and do, from its
+    inputs and the records it wrote: on a valid channel the winners' keys
+    up to the first pruned one, the payload (order, next state, pm word) and
+    old silence count of the kept winners only, the lattice keys up to the
+    first pruned one and the kept rows' pm words; on a masked channel the
+    old frontier; every output once."""
+    Bn, K = rec["pm"].shape
+    R = rec["lat_pm"].shape[1]
+    nbytes = Bn + Bn * (24 * K + 8 * R)
+    for b in range(Bn):
+        if not bool(valid[b]):
+            nbytes += 12 * K
+            continue
+        kept = rec["pm"][b][rec["pm"][b] != -1]
+        lk = int((rec["lat_pm"][b] != -1).sum())
+        prev = torch.unique(kept >> mbits)
+        nbytes += (4 * min(kept.numel() + 1, K2) + 16 * kept.numel()
+                   + 4 * int((prev < K).sum()) + 4 * min(lk + 1, R) + 4 * lk)
+    return nbytes, Bn * (R + 1)  # the beam and lattice-beam additions
+
+
+def phase_frame_step(torch, name, dec, fr, ll, valid):
+    """expand_v4 and select_tail_v4 against their plain versions on one
+    real frame of `dec`: frontier fr [B, K] on the card, ll [B, T, P] with
+    frame T-1 read in place.  Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)}; every output must be bit-equal."""
+    from vosk_tpu_torch.ops import frame_step as fs
+
+    Bn, K = fr["state"].shape
+    M, R, S, P = dec.M, dec.R, dec.S, ll.shape[2]
+    llt = ll[:, -1]
+    ex = (dec.em_pack, fr["state"], fr["cost"], llt, dec.params.acoustic_scale, S, M,
+          dec.mbits)
+    err = {"expand_v4": 0, "select_tail_v4": 0}
+    ref = fs.expand_v4_plain(*ex)
+    for stage in (None, *fs.EXPAND_STAGES):  # the kernel's choice, then each forced
+        for a, b in zip(fs.expand_v4(*ex, stage=stage), ref):
+            err["expand_v4"] = max(err["expand_v4"], bit_err(torch, a, b))
+            if not torch.equal(a, b):
+                raise AssertionError(f"expand_v4 kernel (ll read: {stage}) != plain at {name}")
+    rank = dec._rank_v4(dec._pool_v4(fr, llt))
+    tail = (*rank, fr, valid, dec.params.beam, dec.params.lattice_beam, S, dec.mbits)
+    outs = [dec.record_buffers((2, Bn)) for _ in range(2)]
+    kf, krec = fs.select_tail_v4(*tail, {k: v[1] for k, v in outs[0].items()})
+    pf, prec = fs.select_tail_v4_plain(*tail, {k: v[1] for k, v in outs[1].items()})
+    torch.cuda.synchronize()
+    for what, got, ref in (("frontier", kf, pf), ("records", krec, prec)):
+        for k in got:
+            err["select_tail_v4"] = max(err["select_tail_v4"], bit_err(torch, got[k], ref[k]))
+            if not torch.equal(bits(torch, got[k]), bits(torch, ref[k])):
+                raise AssertionError(f"select_tail_v4 kernel != plain at {name}: {what}[{k}]")
+    live = int((fr["state"] != S).sum())
+    K2 = rank[0].shape[1]
+    # bounds from what this frame needs: each needed input byte read once,
+    # each output byte written once
+    ex_b = bound(*expand_work(torch, dec, fr, P))
+    tail_b = bound(*tail_work(torch, K2, valid, prec, dec.mbits))
+    k_out = {k: v[1] for k, v in outs[0].items()}
+    p_out = {k: v[1] for k, v in outs[1].items()}
+    out = {}
+    for kname, kern, plain, (b_ms, b_by) in (
+            ("expand_v4", lambda: fs.expand_v4(*ex), lambda: fs.expand_v4_plain(*ex), ex_b),
+            ("select_tail_v4", lambda: fs.select_tail_v4(*tail, k_out),
+             lambda: fs.select_tail_v4_plain(*tail, p_out), tail_b)):
+        ms, plain_ms = event_ms(torch, kern), event_ms(torch, plain)
+        out[kname] = (ms, plain_ms, b_ms, b_by, err[kname])
+        log(f"{kname} {name} B={Bn} K={K} M={M} R={R} K2={K2} P={P}, {live} live tokens: "
+            f"bit-equal to plain; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
+    # the ll row staged in shared memory (bulk copy) against read in place,
+    # five times each, interleaved: median [min, max]
+    reps = {st: [] for st in fs.EXPAND_STAGES}
+    for _ in range(5):
+        for st, ts in reps.items():
+            ts.append(event_ms(torch, lambda st=st: fs.expand_v4(*ex, stage=st)))
+    log(f"expand_v4 {name}, ll row read 5 x interleaved: " + "; ".join(
+        f"{st} {sorted(ts)[2]:.6f} [{min(ts):.6f}, {max(ts):.6f}] ms"
+        for st, ts in reps.items()))
+    return out
 
 
 def phase_model(torch, dev, tmp):
@@ -208,9 +370,10 @@ def phase_front_end(torch, bm):
 
 
 def phase_decoder(torch, bm):
-    """Full-width decoder chunks: kernel vs plain gather on the same CUDA
-    tensors vs the CPU (plain) decoder, bit for bit."""
-    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    """Full-width decoder chunks: the frame-step kernels vs their plain
+    versions on the same CUDA tensors vs the CPU (plain) decoder, bit for
+    bit; then both kernels on one real frame at B = 32 and at B = 1."""
+    from vosk_tpu_torch.ops import frame_step
 
     dec = bm._pipeline.dec
     g = torch.Generator().manual_seed(SEED + 2)
@@ -219,8 +382,8 @@ def phase_decoder(torch, bm):
     valid = torch.ones((B, T), dtype=torch.bool)
     valid[1, 2:4] = False
 
-    def run(d, gather, device):
-        d._gather = gather
+    def run(d, ops, device):
+        d.step_ops = ops
         fr = d.init_frontier(B)
         recs, times = [], []
         for ll in chunks:
@@ -233,12 +396,12 @@ def phase_decoder(torch, bm):
         return {k: v.cpu() for k, v in fr.items()}, recs, times
 
     try:
-        k_fr, k_recs, k_t = run(dec, gather_rows, dec.device)
-        p_fr, p_recs, p_t = run(dec, gather_rows_plain, dec.device)
+        k_fr, k_recs, k_t = run(dec, frame_step.KERNELS, dec.device)
+        p_fr, p_recs, p_t = run(dec, frame_step.PLAIN, dec.device)
     finally:
-        dec._gather = gather_rows
-    c_fr, c_recs, _ = run(dec.to("cpu"), gather_rows, "cpu")
-    for name, (fr, recs) in {"plain gather": (p_fr, p_recs), "CPU": (c_fr, c_recs)}.items():
+        dec.step_ops = frame_step.KERNELS
+    c_fr, c_recs, _ = run(dec.to("cpu"), frame_step.KERNELS, "cpu")
+    for name, (fr, recs) in {"plain versions": (p_fr, p_recs), "CPU": (c_fr, c_recs)}.items():
         for k in k_fr:
             if not torch.equal(bits(torch, k_fr[k]), bits(torch, fr[k])):
                 raise AssertionError(f"decoder frontier[{k}]: kernel != {name}")
@@ -247,17 +410,35 @@ def phase_decoder(torch, bm):
                 if not torch.equal(bits(torch, a[k]), bits(torch, b[k])):
                     raise AssertionError(f"decoder records[{k}]: kernel != {name}")
     live = torch.isfinite(k_fr["cost"]).sum(1)
-    log(f"decoder B={B} K={dec.K} T={T}x{len(chunks)}: frontier + 5 record planes "
-        f"bit-equal kernel / plain / CPU; live tokens min {live.min().item()} "
-        f"max {live.max().item()}; chunk seconds kernel {[round(x, 4) for x in k_t]} "
-        f"plain {[round(x, 4) for x in p_t]}")
+    log(f"decoder B={B} K={dec.K} T={T}x{len(chunks)}, acoustic scale "
+        f"{dec.params.acoustic_scale}: frontier + 5 record planes bit-equal kernels / "
+        f"plain / CPU; live tokens min {live.min().item()} max {live.max().item()}; chunk "
+        f"seconds kernels {[round(x, 4) for x in k_t]} plain {[round(x, 4) for x in p_t]}")
+    # one real frame: the frontier after 2 chunks and T-1 frames of the third
+    fr = {k: v.to(dec.device) for k, v in k_fr.items()}
+    ll = chunks[2].to(dec.device)
+    fr, _, _, _ = dec.decode_chunk(fr, ll[:, :T - 1], valid[:, :T - 1].to(dec.device))
+    vt = valid[:, T - 1].to(dec.device)
+    return {
+        "b32": phase_frame_step(torch, "batch", dec, fr, ll, vt),
+        "b1": phase_frame_step(torch, "streaming", dec, {k: v[:1].contiguous() for k, v in fr.items()},
+                               ll[:1], vt[:1]),
+    }
+
+
+def real_frame(torch, dec, P, seed, frames=6):
+    """A frontier of dec at B = 1 after `frames` frames of seeded scores
+    over P pdfs, and the chunk [1, frames + 1, P] whose last frame is next."""
+    g = torch.Generator().manual_seed(seed)
+    ll = (torch.randn((1, frames + 1, P), generator=g) * 2.0).to(dec.device)
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(1), ll[:, :frames])
+    return fr, ll, torch.ones(1, dtype=torch.bool, device=dec.device)
 
 
 def phase_serving(torch, bm):
     import numpy as np
 
     import vosk_tpu_torch
-    from vosk_tpu_torch.ops.gather import gather_rows
 
     p = bm._pipeline
     rate = int(p.rate)
@@ -269,7 +450,7 @@ def phase_serving(torch, bm):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() / 2**30
-    gather_rows.launches = 0  # every kernel count, just before the main path
+    zero_counts()  # every kernel count, just before the main path
     t_all = time.perf_counter()
     recs = [vosk_tpu_torch.BatchRecognizer(bm, rate) for _ in range(N_REQUESTS)]
     step_s = []
@@ -294,11 +475,9 @@ def phase_serving(torch, bm):
             results.append(json.loads(out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = gather_rows.launches
+    launches = read_counts("the serving path")
     if not on_card:
         raise AssertionError("frontier/records were not CUDA tensors")
-    if launches <= 0:
-        raise AssertionError("the serving path never launched the gather kernel")
     if len(results) < N_REQUESTS or not all(isinstance(x.get("text"), str) for x in results):
         raise AssertionError(f"bad results: {results}")
     steps = np.array(step_s)
@@ -308,8 +487,7 @@ def phase_serving(torch, bm):
         f"p50 {np.median(steps) * 1e3:.3f} ms max {steps.max() * 1e3:.3f} ms; "
         f"wall {wall:.3f} s incl. finishing; {audio_s / wall:.3f} audio-s/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-        f"({base:.3f} GiB allocated before the first request); "
-        f"gather launches {launches}")
+        f"({base:.3f} GiB allocated before the first request); {count_line(launches)}")
     log("results: " + json.dumps([x["text"][:40] for x in results]))
     return launches
 
@@ -389,7 +567,7 @@ def phase_streaming(torch, path):
     import numpy as np
 
     import vosk_tpu_torch
-    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from vosk_tpu_torch.ops import frame_step
 
     t0 = time.perf_counter()
     model = vosk_tpu_torch.Model(str(path), device="cuda")
@@ -401,7 +579,7 @@ def phase_streaming(torch, path):
     long_pcm = noise_pcm(10.5, 16000, SEED + 4)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather_rows.launches = 0  # every kernel count, just before the main path
+    zero_counts()  # every kernel count, just before the main path
     outs, t = stream_long(model, long_pcm, 16000)
     rec = vosk_tpu_torch.KaldiRecognizer(model, 8000)
     rec.SetWords(True)
@@ -416,27 +594,26 @@ def phase_streaming(torch, path):
         rec.AcceptWaveform(pcm_alt[off: off + 6400])
     res_alt = check_schema(rec.FinalResult(), "alternatives")
     torch.cuda.synchronize()
-    launches = gather_rows.launches
+    launches = read_counts("the streaming path")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches <= 0:
-        raise AssertionError("the streaming path never launched the gather kernel")
-    # the same 10.5 s stream through the plain gather (single-threaded, so
-    # swapping the shared decoder's gather is safe): identical JSON
-    dec._gather = gather_rows_plain
+    # the same 10.5 s stream through the plain versions (single-threaded, so
+    # swapping the shared decoder's step ops is safe): identical JSON
+    dec.step_ops = frame_step.PLAIN
     try:
         plain_outs, _ = stream_long(model, long_pcm, 16000)
     finally:
-        dec._gather = gather_rows
+        dec.step_ops = frame_step.KERNELS
     if plain_outs != outs:
-        raise AssertionError("the 10.5 s stream differs between the kernel and the plain gather")
+        raise AssertionError("the 10.5 s stream differs between the kernels and the plain "
+                             "versions")
     a = t["accept"]
     log(f"streaming 10.5 s in 0.2 s pieces (B=1, K={dec.K}, R={dec.R}): AcceptWaveform "
         f"p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms ({len(a)} pieces); "
         f"PartialResult p50 {np.median(t['partial']) * 1e3:.3f} ms max "
         f"{t['partial'].max() * 1e3:.3f} ms; first fold {t['first_fold'] * 1e3:.3f} ms "
         f"({t['folded']} frames folded); FinalResult {t['final'] * 1e3:.3f} ms; "
-        f"peak device memory {peak:.3f} GiB; gather launches {launches}; "
-        f"identical JSON with the plain gather ({len(outs)} results)")
+        f"peak device memory {peak:.3f} GiB; {count_line(launches)}; "
+        f"identical JSON with the plain versions ({len(outs)} results)")
     log("streaming stages (host s): " + json.dumps(
         {k: v["seconds"] for k, v in t["stages"].items()}))
     log("streaming results: " + json.dumps({
@@ -449,7 +626,6 @@ def phase_run_scan(torch, bm):
     """bench.py's path at its operating point, B = 32."""
     import numpy as np
 
-    from vosk_tpu_torch.ops.gather import gather_rows
     from vosk_tpu_torch.runtime.pipeline import FusedPipeline
     from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
 
@@ -469,14 +645,12 @@ def phase_run_scan(torch, bm):
     del recs, best, st
     state = pipe.init_state()
     torch.cuda.synchronize()
-    gather_rows.launches = 0  # every kernel count, just before the main path
+    zero_counts()  # every kernel count, just before the main path
     t0 = time.perf_counter()
     state, recs, best = pipe.run_scan(state, audio, ll_bias=ll_bias)
     best_h = best.cpu()
     dt = time.perf_counter() - t0
-    launches = gather_rows.launches
-    if launches <= 0:
-        raise AssertionError("run_scan never launched the gather kernel")
+    launches = read_counts("run_scan")
     if not torch.isfinite(best_h).all():
         raise AssertionError(f"run_scan best costs are not finite: {best_h}")
     live = torch.isfinite(recs["f_cost"]).sum(-1).float()
@@ -486,7 +660,7 @@ def phase_run_scan(torch, bm):
         f"{tuple(recs['pm'].shape)}: {dt:.3f} s for {audio_s:.2f} audio-s = "
         f"{audio_s / dt:.3f} audio-s/s, {dt / frames * 1e3:.3f} ms per decoded frame; "
         f"live tokens p50 {live.median().item():.0f} (min {live.min().item():.0f}, "
-        f"max {live.max().item():.0f}); gather launches {launches}")
+        f"max {live.max().item():.0f}); {count_line(launches)}")
     return launches
 
 
@@ -502,7 +676,7 @@ def phase_kaldi(torch, tmp):
 
     import vosk_tpu_torch
     from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
-    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from vosk_tpu_torch.ops import frame_step
     from vosk_tpu_torch.utils import benchdata, kaldidata
 
     t0 = time.perf_counter()
@@ -539,14 +713,12 @@ def phase_kaldi(torch, tmp):
     pcm = noise_pcm(10.5, 16000, SEED + 7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather_rows.launches = 0  # every kernel count, just before the main path
+    zero_counts()  # every kernel count, just before the main path
     outs, t = stream_long(model, pcm, 16000)
     torch.cuda.synchronize()
-    launches = gather_rows.launches
+    launches = read_counts("the Kaldi streaming path")
     peak = torch.cuda.max_memory_allocated() / 2**30
     r = t["rec"]
-    if launches <= 0:
-        raise AssertionError("the Kaldi streaming path never launched the gather kernel")
     if not all(v.is_cuda for v in r._iv_state.values()):
         raise AssertionError("the i-vector state is not on the card")
     iv = r.iv.current(r._iv_state)[0].cpu()
@@ -554,21 +726,22 @@ def phase_kaldi(torch, tmp):
         raise AssertionError(f"the i-vector did not move off zero: {iv[:5]}")
     if r._iv_frames_weighted <= 0 or "ivector" not in t["stages"]:
         raise AssertionError("i-vector silence weighting did not run")
-    dec._gather = gather_rows_plain
+    dec.step_ops = frame_step.PLAIN
     try:
         plain_outs, _ = stream_long(model, pcm, 16000)
     finally:
-        dec._gather = gather_rows
+        dec.step_ops = frame_step.KERNELS
     if plain_outs != outs:
-        raise AssertionError("the Kaldi stream differs between the kernel and the plain gather")
+        raise AssertionError("the Kaldi stream differs between the kernels and the plain "
+                             "versions")
     a = t["accept"]
     log(f"kaldi streaming 10.5 s in 0.2 s pieces (B=1): AcceptWaveform p50 "
         f"{np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms ({len(a)} pieces); "
         f"PartialResult p50 {np.median(t['partial']) * 1e3:.3f} ms; first fold "
         f"{t['first_fold'] * 1e3:.3f} ms; FinalResult {t['final'] * 1e3:.3f} ms; "
-        f"peak device memory {peak:.3f} GiB; gather launches {launches}; i-vector "
+        f"peak device memory {peak:.3f} GiB; {count_line(launches)}; i-vector "
         f"|x|max {iv.abs().max().item():.4f}, silence weighting scanned "
-        f"{r._iv_frames_weighted} frames; identical JSON with the plain gather "
+        f"{r._iv_frames_weighted} frames; identical JSON with the plain versions "
         f"({len(outs)} results)")
     log("kaldi streaming stages (host s): " + stage_line(t["stages"]))
     log("kaldi streaming result: " + json.dumps(json.loads(outs[-1])["text"][:60]))
@@ -614,7 +787,6 @@ def phase_split(torch, tmp):
 
     import vosk_tpu_torch
     from vosk_tpu_torch.io.kaldi_export import export_kaldi_split_dir
-    from vosk_tpu_torch.ops.gather import gather_rows
     from vosk_tpu_torch.utils import benchdata, kaldidata
 
     t0 = time.perf_counter()
@@ -632,12 +804,13 @@ def phase_split(torch, tmp):
     for name, g in (("main", None), ("grammar", grammar)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        gather_rows.launches = 0  # every kernel count, just before the path
+        zero_counts()  # every kernel count, just before the path
         t0 = time.perf_counter()
         res, accept, final_s, rec = stream_short(model, 16000, SEED + 8, g)
         torch.cuda.synchronize()
         runs[name] = dict(res=res, accept=accept, final=final_s, wall=time.perf_counter() - t0,
-                          launches=gather_rows.launches, dec=rec._rec.dec,
+                          launches=read_counts(f"the {name} split-graph stream"),
+                          dec=rec._rec.dec,
                           peak=torch.cuda.max_memory_allocated() / 2**30,
                           stages=rec.GetMetrics()["stages"],
                           on_card=rec._rec._frontier["state"].is_cuda)
@@ -645,8 +818,8 @@ def phase_split(torch, tmp):
     if not words <= {"w1", "w2", "w3"}:
         raise AssertionError(f"grammar decode left the grammar: {runs['grammar']['res']}")
     for name, run in runs.items():
-        if run["launches"] <= 0 or not run["on_card"]:
-            raise AssertionError(f"the {name} split-graph stream did not run on the kernel")
+        if not run["on_card"]:
+            raise AssertionError(f"the {name} split-graph stream did not run on the card")
     log(f"split graph: export (1000-word lexicon, HCLr + Gr) {t_export:.3f} s; Model load "
         f"{t_load:.3f} s (by stage "
         f"{json.dumps({k: round(v, 3) for k, v in model._model.load_seconds.items()})})")
@@ -656,7 +829,7 @@ def phase_split(torch, tmp):
             f"AcceptWaveform p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms "
             f"(first piece includes recognizer setup); FinalResult "
             f"{run['final'] * 1e3:.3f} ms; peak device memory {run['peak']:.3f} GiB; "
-            f"gather launches {run['launches']}; text "
+            f"{count_line(run['launches'])}; text "
             f"{json.dumps(run['res']['text'][:60])}; stages {stage_line(run['stages'])}")
     return runs["main"]["launches"], runs["grammar"]["launches"], (
         runs["main"]["dec"], runs["grammar"]["dec"])
@@ -673,25 +846,32 @@ def main() -> int:
     ).stdout.strip()
     log(smi)
     sys.path.insert(0, str(ROOT))
-    from vosk_tpu_torch.ops import gather
+    from vosk_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    gather.build()
+    lib = _kernels.build()
     t_kernel = time.perf_counter() - t0
     core = ROOT / "core" / "libvosk_tpu_core.so"
     if not core.exists():
         subprocess.run(["make", "-C", str(ROOT / "core"), "libvosk_tpu_core.so"],
                        check=True, stdout=sys.stderr)
-    log(f"build: gather kernel {t_kernel:.3f} s; {core.name} present")
+    log(f"build: kernel library {lib.name} from "
+        f"{', '.join(p.name for p in _kernels.sources())} in {t_kernel:.3f} s; "
+        f"{core.name} present; ptxas per kernel:")
+    for line in _kernels.build_log().splitlines():
+        if "ptxas" in line and ("Compiling entry" in line or "Used" in line
+                                or "spill" in line or "stack frame" in line):
+            log("  " + line.strip())
 
     times, max_err = phase_kernel(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         bm = phase_model(torch, dev, tmp)
+        P = bm._model.am_config.num_pdfs
         phase_front_end(torch, bm)
-        phase_decoder(torch, bm)
+        fs_times = phase_decoder(torch, bm)
         launches = phase_serving(torch, bm)
         b1, b1_err = phase_kernel(torch, dev, cases=(
             ("b1_ll", "float32", 1, 6008, 28000),   # streaming acoustic lookup
@@ -714,31 +894,55 @@ def main() -> int:
             ("grammar_tsil", "int32", 1, d_gram.K, d_gram.K),
         ))
         max_err = max(max_err, kaldi_err, split_err)
+        for key, d, seed in (("split", d_main, SEED + 9), ("grammar", d_gram, SEED + 10)):
+            fs_times[key] = phase_frame_step(torch, key, d, *real_frame(torch, d, P, seed))
 
+    paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
+             "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
+             "split": launches_split, "grammar": launches_grammar}
+    gather_times = {**b1, **kaldi_times, **split_times}
     kernels = [{
         "name": "gather_rows",
         "route": "cuda",
         "source": "vosk_tpu_torch/csrc/gather.cu",
         "replaces": "vosk_tpu/ops/gather.py:33",
-        "launches": launches,
+        "launches": launches["gather_rows"],
         "max_abs_err": max_err,
         "ms": times["ll"][0],
         "plain_ms": times["ll"][1],
+        "bound_ms": times["ll"][2],
+        "bound_by": times["ll"][3],
+        "library_ms": times["ll"][4],
         "tsil_ms": times["tsil"][0],
         "tsil_plain_ms": times["tsil"][1],
-        "launches_streaming": launches_streaming,
-        "launches_run_scan": launches_run_scan,
-        "b1_ms": b1["b1_ll"][0],
-        "b1_plain_ms": b1["b1_ll"][1],
-        "b1_tsil_ms": b1["b1_tsil"][0],
-        "b1_tsil_plain_ms": b1["b1_tsil"][1],
-        "launches_kaldi": launches_kaldi,
-        "launches_kaldi_batch": launches_kaldi_batch,
-        "launches_split": launches_split,
-        "launches_grammar": launches_grammar,
-        **{f"{k}_ms": v[0] for k, v in {**kaldi_times, **split_times}.items()},
-        **{f"{k}_plain_ms": v[1] for k, v in {**kaldi_times, **split_times}.items()},
+        "tsil_bound_ms": times["tsil"][2],
+        "tsil_library_ms": times["tsil"][4],
+        **{f"launches_{k}": v["gather_rows"] for k, v in paths.items()},
+        **{f"{k}_ms": v[0] for k, v in gather_times.items()},
+        **{f"{k}_plain_ms": v[1] for k, v in gather_times.items()},
+        **{f"{k}_bound_ms": v[2] for k, v in gather_times.items()},
+        **{f"{k}_library_ms": v[4] for k, v in gather_times.items()},
     }]
+    for name, site in (("expand_v4", "vosk_tpu/ops/viterbi.py:879"),
+                       ("select_tail_v4", "vosk_tpu/ops/viterbi.py:1105")):
+        main_t = fs_times["b32"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vosk_tpu_torch/csrc/frame_step.cu",
+            "replaces": "vosk_tpu/ops/gather.py:33",
+            "call_site": site,
+            "launches": launches[name],
+            "max_abs_err": max(t[name][4] for t in fs_times.values()),
+            "ms": main_t[0],
+            "plain_ms": main_t[1],
+            "bound_ms": main_t[2],
+            "bound_by": main_t[3],
+            "library_ms": None,
+            **{f"launches_{k}": v[name] for k, v in paths.items()},
+            **{f"{shape}_{k}": t[name][i] for shape, t in fs_times.items() if shape != "b32"
+               for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))},
+        })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

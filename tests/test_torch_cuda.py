@@ -1,6 +1,6 @@
-"""vosk_tpu_torch on the card: the gather kernel, the decoder with it, a
-streaming KaldiRecognizer decode, and a Kaldi-layout directory with
-i-vectors.
+"""vosk_tpu_torch on the card: the gather kernel, the two frame-step
+kernels, the decoder with them, a streaming KaldiRecognizer decode, and a
+Kaldi-layout directory with i-vectors.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from vosk_tpu_torch.ops import frame_step
+from vosk_tpu_torch.ops.frame_step import (
+    expand_v4, expand_v4_plain, select_tail_v4, select_tail_v4_plain,
+)
 from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from vosk_tpu_torch.ops.viterbi import BatchViterbi, DecodeParams
 from vosk_tpu_torch.utils.benchdata import make_realistic_graph
@@ -57,9 +61,96 @@ def test_kernel_matches_plain(cuda_device, dtype, B, P, N):
     assert got[0, 1].item() == 0 and got[-1, -1].item() == 0
 
 
-def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device):
-    g = make_realistic_graph(num_states=20_000, num_pdfs=64, num_words=500, seed=3)
-    dec = BatchViterbi(g, DecodeParams(beam=10.0, max_active=1024, lattice_beam=6.0),
+def _synthetic_rows(rng, S, M, P):
+    """A packed16 arc table [S+1, 2M] with padding slots (w = +inf, next S),
+    eps-flagged next states, pdf ids up to 2^14 (some past P) and row S
+    all padding, as `_build_padded_tables` lays it out."""
+    w = (rng.standard_normal((S + 1, M)) * 3).astype(np.float16)
+    w[rng.random((S + 1, M)) < 0.2] = np.inf
+    w[S] = np.inf
+    pdf = rng.integers(0, min(P + 3, 1 << 14), (S + 1, M)).astype(np.uint32)
+    sil = rng.integers(0, 2, (S + 1, M)).astype(np.uint32)
+    sil[S] = 0
+    nxt = rng.integers(0, S, (S + 1, M)).astype(np.int32)
+    nxt[rng.random((S + 1, M)) < 0.1] |= 1 << 30
+    nxt[np.isinf(w)] = S
+    p1 = (w.view(np.uint16).astype(np.uint32) << 16) | (sil << 14) | pdf
+    return torch.from_numpy(np.concatenate([p1.view(np.int32), nxt], axis=1))
+
+
+@pytest.mark.parametrize("B,K,M,P,scale", [
+    (32, 7000, 4, 6008, 1.0),     # the batch decoder: more blocks than SMs, ll read in place
+    (1, 7000, 4, 6008, 0.7),      # a streaming recognizer: ll row bulk-copied
+    (1, 7000, 4, 63, 0.7),        # odd P: no bulk copy, ll read in place
+    (2, 300, 8, 63, 0.7),         # the same, one thread per candidate
+    (32, 7000, 8, 6008, 1.0),     # wider rows in place
+    (1, 124, 266, 6008, 1.0),     # a split graph's widest rows, staged
+    (2, 100, 27, 20000, 0.7),     # P past 2^14: only the pdf range is staged
+])
+def test_expand_kernel_matches_plain(cuda_device, B, K, M, P, scale):
+    rng = np.random.default_rng(K + M)
+    S = 5000
+    em = _synthetic_rows(rng, S, M, P).to(cuda_device)
+    state = torch.from_numpy(rng.integers(0, S + 1, (B, K)).astype(np.int32))
+    state[rng.random((B, K)) < 0.3] = S
+    cost = torch.from_numpy((rng.standard_normal((B, K)) * 10).astype(np.float32))
+    cost[state == S] = float("inf")
+    chunk = torch.from_numpy((rng.standard_normal((B, 3, P)) * 4).astype(np.float32))
+    chunk[:, :, ::11] = float("-inf")
+    ll = chunk.to(cuda_device)[:, 1]  # frame 1 read in place: rows strided
+    state, cost = state.to(cuda_device), cost.to(cuda_device)
+    mbits = max((M - 1).bit_length(), 1)
+    before = expand_v4.launches
+    got = expand_v4(em, state, cost, ll, scale, S, M, mbits)
+    torch.cuda.synchronize()
+    assert expand_v4.launches == before + 1
+    ref = expand_v4_plain(em, state, cost, ll, scale, S, M, mbits)
+    for name, a, b in zip(("cbits", "nsm", "pm"), got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.fixture(scope="module")
+def realistic_graph():
+    return make_realistic_graph(num_states=20_000, num_pdfs=64, num_words=500, seed=3)
+
+
+@pytest.mark.parametrize("B,K", [(4, 256), (4, 2048), (32, 1024)])
+def test_select_tail_kernel_matches_plain(cuda_device, realistic_graph, B, K):
+    """The tail on real pools (a masked channel, an empty one, +inf costs),
+    writing into record_buffers views at frame t."""
+    dec = BatchViterbi(realistic_graph, DecodeParams(beam=10.0, max_active=K, lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True,
+                       device=cuda_device)
+    gen = torch.Generator().manual_seed(K)
+    ll = torch.randn((B, 4, 64), generator=gen)
+    ll[: B // 2] *= 0.2
+    ll[0, 3, ::5] = float("-inf")
+    ll[2, 3] = float("-inf")
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(B), ll[:, :3].to(cuda_device))
+    fr["state"][-1], fr["cost"][-1] = dec.S, float("inf")
+    valid = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    valid[1] = False
+    args = dec._rank_v4(dec._pool_v4(fr, ll[:, 3].to(cuda_device)))
+    tail = (fr, valid, 10.0, 6.0, dec.S, dec.mbits)
+    bufs = [dec.record_buffers((3, B)) for _ in range(2)]
+    before = select_tail_v4.launches
+    kf, krec = select_tail_v4(*args, *tail, {k: v[1] for k, v in bufs[0].items()})
+    torch.cuda.synchronize()
+    assert select_tail_v4.launches == before + 1
+    pf, prec = select_tail_v4_plain(*args, *tail, {k: v[1] for k, v in bufs[1].items()})
+    for k in kf:
+        assert torch.equal(_bits(kf[k]), _bits(pf[k])), k
+        assert kf[k].data_ptr() != fr[k].data_ptr()
+    for k in krec:
+        assert krec[k].data_ptr() == bufs[0][k][1].data_ptr()
+        assert torch.equal(_bits(krec[k]), _bits(prec[k])), k
+    assert (dec.R > dec.K) == (K < 2048)
+
+
+def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device, realistic_graph):
+    dec = BatchViterbi(realistic_graph,
+                       DecodeParams(beam=10.0, max_active=1024, lattice_beam=6.0,
+                                    acoustic_scale=0.7),
                        silence_pdfs=np.array([0, 1]), optimize_graph=True,
                        device=cuda_device)
     B, T = 16, 8
@@ -69,19 +160,21 @@ def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device):
     valid = torch.ones((B, T), dtype=torch.bool)
     valid[1, 3:5] = False
 
-    def run(d, gather):
-        d._gather = gather
+    def run(d, ops):
+        d.step_ops = ops
         fr, rec, best, bestf = d.decode_chunk(d.init_frontier(B), ll.to(d.device),
                                               valid.to(d.device))
         out = {**{f"frontier.{k}": v for k, v in fr.items()}, **rec,
                "best": best, "best_final": bestf}
         return {k: v.cpu() for k, v in out.items()}
 
-    before = gather_rows.launches
-    kern = run(dec, gather_rows)
-    assert gather_rows.launches - before == 2 * T  # expand + select per frame
-    plain = run(dec, gather_rows_plain)
-    cpu = run(dec.to("cpu"), gather_rows)
+    before = (expand_v4.launches, select_tail_v4.launches, gather_rows.launches)
+    kern = run(dec, frame_step.KERNELS)
+    # one launch of each frame-step kernel per frame; no gather on the path
+    assert (expand_v4.launches - before[0], select_tail_v4.launches - before[1],
+            gather_rows.launches - before[2]) == (T, T, 0)
+    plain = run(dec, frame_step.PLAIN)
+    cpu = run(dec.to("cpu"), frame_step.KERNELS)
     for k in kern:
         assert torch.equal(_bits(kern[k]), _bits(plain[k])), k
         assert torch.equal(_bits(kern[k]), _bits(cpu[k])), k
@@ -117,9 +210,9 @@ def test_kaldi_recognizer_on_card(cuda_device, tmp_path):
         outs.append(rec.FinalResult())
         return outs, on_card
 
-    before = gather_rows.launches
+    before = (expand_v4.launches, select_tail_v4.launches)
     outs, on_card = run("cuda")
-    assert on_card and gather_rows.launches > before
+    assert on_card and expand_v4.launches > before[0] and select_tail_v4.launches > before[1]
     assert "text" in json.loads(outs[-1])
     cpu_outs, _ = run("cpu")
     assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
@@ -162,9 +255,9 @@ def test_kaldi_dir_with_ivectors_on_card(cuda_device, tmp_path):
         outs.append(rec.FinalResult())
         return outs, r, state_on
 
-    before = gather_rows.launches
+    before = (expand_v4.launches, select_tail_v4.launches)
     outs, r, state_on = run("cuda")
-    assert gather_rows.launches > before
+    assert expand_v4.launches > before[0] and select_tail_v4.launches > before[1]
     assert set(state_on.values()) == {"cuda"}
     assert r._iv_frames_weighted > 0
     cpu_outs, _, _ = run("cpu")

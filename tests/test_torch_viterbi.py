@@ -6,6 +6,8 @@ frames.  The frontier (state, cost, tsil), the five record planes (pm,
 state, f_cost, lat_pm, lat_cost) and the best costs must be BIT-equal.
 B=16 with max-active 1024 makes the JAX decoder take its ragged bucket
 path, which the port does not have (it is bit-equal to the full-K step).
+At acoustic scale 0.7 XLA rounds each candidate cost once (a fused
+multiply-add), which the port reproduces.
 """
 import numpy as np
 import pytest
@@ -28,9 +30,10 @@ def graph():
     return make_realistic_graph(num_states=20_000, num_pdfs=64, num_words=500, seed=3)
 
 
-@pytest.mark.parametrize("B,K", [(4, 256), (16, 1024)])
-def test_v4_bit_equal(graph, B, K):
-    params = dict(beam=10.0, max_active=K, lattice_beam=6.0)
+@pytest.mark.parametrize("B,K,scale", [(4, 256, 1.0), (16, 1024, 1.0), (4, 256, 0.7)],
+                         ids=["4-256", "16-1024", "4-256-scale0.7"])
+def test_v4_bit_equal(graph, B, K, scale):
+    params = dict(beam=10.0, max_active=K, lattice_beam=6.0, acoustic_scale=scale)
     jd = JViterbi(graph, JParams(**params), lattice_records=True, silence_pdfs=SIL,
                   frame_step="auto", pack="packed16", optimize_graph=True)
     td = BatchViterbi(graph, DecodeParams(**params), silence_pdfs=SIL,

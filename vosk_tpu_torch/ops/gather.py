@@ -5,92 +5,20 @@ CUDA tensors; it replaces the JAX package's only Pallas kernel,
 `vosk_tpu/ops/gather.py:_pallas_gather` (see the note at the top of the
 CUDA source for what bounds it and what its design does about that).
 `gather_rows_plain` is the plain PyTorch version of the same function: the
-wrapper uses it for CPU tensors, and tests compare the kernel with it.
-
-The kernel is compiled with nvcc at first use into `vosk_tpu_torch/_build/`
-as a shared library with a plain C interface, loaded with ctypes, and keyed
-by a hash of its source and flags, so a fresh checkout builds it on its own.
+wrapper uses it for CPU tensors, and tests compare the kernel with it.  The
+decoder's v4 frame step no longer calls it: its two lookups live inside the
+frame-step kernels (ops/frame_step.py); the ports of the source's other
+call sites (v3, sharded) will take it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG / "csrc" / "gather.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from . import _kernels
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the gather kernel is built "
-        "from csrc/gather.cu at first use on a CUDA tensor"
-    )
-
-
-def library_path() -> Path:
-    """Where the built kernel library lives, keyed by source and flags."""
-    h = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libvt_gather-{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile csrc/gather.cu unless a build of this exact source exists.
-    Raises with nvcc's output when the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {_SOURCE} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.vt_gather_rows
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -143,10 +71,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
     if B == 0 or N == 0:
         return out
-    lib = _library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
-        err = lib.vt_gather_rows(
+        err = _kernels.function("vt_gather_rows", _ARGTYPES)(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, P, N, stream
         )
     if err != 0:

@@ -7,21 +7,26 @@ same log-likelihoods, the frontier and the five record planes are
 bit-equal to the JAX decoder (tests/test_torch_viterbi.py).
 
 Per frame, for each channel:
-  * expand: every frontier token reads its packed arc row [2M] int32
-    (f16(w) << 16 | sil << 14 | pdf, then next state), looks up the
-    acoustic score ll[b, pdf] with the gather kernel (ops/gather.py) and
-    scores E = K*M candidates with order-preserving int32 cost keys;
-  * select: one stable sort by cost, lattice rows from the R cheapest,
-    dedup by next state among the K2 cheapest (stable sort by
-    (state, cost)), a stable re-rank of the winners, the beam prune, and
-    the trailing-silence update through the gather kernel.
-Records keep the [T, B, ...] layout of the source's scan.
+  * expand (kernel `expand_v4`, ops/frame_step.py): every frontier token
+    reads its packed arc row [2M] int32 (f16(w) << 16 | sil << 14 | pdf,
+    then next state), looks up the acoustic score ll[b, pdf] and scores
+    E = K*M candidates with order-preserving int32 cost keys;
+  * select: one stable sort by cost, dedup by next state among the K2
+    cheapest (stable sort by (state, cost)) and a stable re-rank of the
+    winners, all torch sorts; then the kernel `select_tail_v4`: the beam
+    prune, the trailing-silence update, the new frontier, and the record
+    rows (lattice rows from the R cheapest) written in place.
+Records keep the [T, B, ...] layout of the source's scan.  `step_ops`
+holds the two kernels' wrappers (`frame_step.KERNELS`); setting it to
+`frame_step.PLAIN` runs their plain versions on the same tensors.
 
 Bit-parity notes: the three sorts are stable, as `lax.sort` is; the
 two-key sort is one stable sort on the int64 key (state << 32) | (cost key
 + 2^31); shifts that the source makes logical are taken after a mask; the
 f16 weight is read from the top half-word without a saturating cast; cost
-keys rely on int32 wraparound, which torch's int32 arithmetic keeps.
+keys rely on int32 wraparound, which torch's int32 arithmetic keeps; the
+candidate cost is rounded once after the f32 sum, as XLA's fused
+multiply-add rounds it at any acoustic scale (ops/frame_step.py).
 
 The JAX package's ragged bucket ladder (`_frame_step_v4_ragged`) is not
 ported: it is bit-equal to the full-K step (tests/test_viterbi_v4.py).
@@ -47,22 +52,9 @@ import torch
 
 from ..graph.fst import EPSILON, DecodingGraph
 from ..graph.lattice import to_host
-from .gather import gather_rows
-
-INF = float("inf")
-BIG_I32 = 2**31 - 1
-_I32_MIN = -(2**31)
-
-# per-token "tsil": trailing silence frame count (low bits) + has-speech flag
-SPEECH_BIT = 1 << 21
-TSIL_MASK = (1 << 21) - 1
-# padded-layout next-state field: bit 30 flags "target has epsilon arcs"
-NS_MASK = (1 << 30) - 1
-# v4 record pm-plane flags: bit 30 = arc is silence (device-side only, not
-# stored in records), bit 29 = identity carry (masked frame, no arc taken)
-PM_SIL_FLAG = 1 << 30
-PM_IDENT_FLAG = 1 << 29
-PM_MASK = (1 << 29) - 1
+from .frame_step import (
+    BIG_I32, INF, KERNELS, PM_IDENT_FLAG, PM_MASK, SPEECH_BIT, TSIL_MASK,
+)
 # padded layout for any out-degree whose [S+1, M] table has at most 2^26
 # slots (after prepare_graph_v4 with M=4 the degree is 4 or 8 on most
 # graphs; the source's padded limit is 16, above which it takes its CSR
@@ -80,18 +72,6 @@ class DecodeParams:
     max_active: int = 7000
     lattice_beam: float = 6.0
     acoustic_scale: float = 1.0
-
-
-def cost_bits(cost: torch.Tensor) -> torch.Tensor:
-    """Order-preserving int32 encoding of an f32 cost (a < b <=> bits(a) <
-    bits(b)); +inf maps above all finite costs."""
-    cb = cost.view(torch.int32)
-    return torch.where(cb < 0, _I32_MIN - cb, cb)
-
-
-def bits_cost(bits: torch.Tensor) -> torch.Tensor:
-    raw = torch.where(bits < 0, _I32_MIN - bits, bits)
-    return raw.view(torch.float32)
 
 
 def split_tsil(ts: np.ndarray):
@@ -153,9 +133,9 @@ class BatchViterbi:
         self._final_cost_t = torch.as_tensor(self.final_cost, device=self.device)
         self._build_padded_tables()
         self._init_states, self._init_costs, self._init_prefixes = self._initial_closure()
-        # the gather used by the frame step; chip_smoke.py swaps in
-        # gather_rows_plain to compare the two on the same CUDA tensors
-        self._gather = gather_rows
+        # the frame step's kernels; chip_smoke.py and the card tests swap in
+        # frame_step.PLAIN to compare the two on the same CUDA tensors
+        self.step_ops = KERNELS
         # recognizers of one model share this decoder: one chunk at a time
         # (the source serialises decode_chunk the same way)
         self._dispatch_lock = threading.RLock()
@@ -204,15 +184,8 @@ class BatchViterbi:
         )
         self.dense_w = w.astype(np.float16).astype(np.float32)
         self.dense_next, self.dense_pdf, self.dense_olabel = nxt, pdf, ola
-        # static (prev << mbits | m) vector for candidate slot e = prev*M + m
+        # candidate slot e = prev*M + m carries pm = prev << mbits | m
         self.mbits = max((M - 1).bit_length(), 1)
-        e_ids = np.arange(self.K * M, dtype=np.int32)
-        self._prevm = torch.as_tensor(
-            ((e_ids // M) << self.mbits) | (e_ids % M), device=self.device
-        )
-        slot = np.arange(self.K, dtype=np.int32)
-        self._ident_pm = torch.as_tensor(PM_IDENT_FLAG | (slot << self.mbits),
-                                         device=self.device)
 
     def _initial_closure(self):
         g = self.graph
@@ -252,7 +225,7 @@ class BatchViterbi:
         and the prepared graph are shared, not rebuilt)."""
         c = copy.copy(self)
         c.device = torch.device(device)
-        for k in ("em_pack", "_prevm", "_ident_pm", "_final_cost_t"):
+        for k in ("em_pack", "_final_cost_t"):
             setattr(c, k, getattr(self, k).to(c.device))
         c._dispatch_lock = threading.RLock()
         return c
@@ -270,112 +243,54 @@ class BatchViterbi:
 
     def _expand_v4(self, tok_state, tok_cost, ll):
         """Tokens -> scored candidates (cbits, nsm, pm), each [B, K*M]."""
-        M, S = self.M, self.S
-        B, K = tok_state.shape
-        E = K * M
-        rows = self.em_pack[tok_state.long()]  # [B, K, 2M]
-        p1 = rows[:, :, :M].reshape(B, E)
-        nsf = rows[:, :, M:].reshape(B, E)
-        # f16 weight bits = the top half-word of p1, brought into int16
-        # range by value (no saturating narrowing cast), then bit-viewed
-        h = (p1 >> 16) & 0xFFFF
-        w = torch.where(h >= 0x8000, h - 0x10000, h).to(torch.int16)
-        w = w.view(torch.float16).to(torch.float32)
-        sil = (p1 >> 14) & 1
-        pdf = p1 & ((1 << 14) - 1)
-        ac = self._gather(ll, pdf)
-        cost = tok_cost.repeat_interleave(M, dim=1) + w - self.params.acoustic_scale * ac
-        finite = torch.isfinite(w)
-        cbits = torch.where(finite, cost_bits(cost), BIG_I32)
-        nsm = torch.where(finite, nsf & NS_MASK, S)
-        pm = self._prevm[None, :E] + (sil << 30)
-        return cbits, nsm, pm
+        return self.step_ops.expand(self.em_pack, tok_state, tok_cost, ll,
+                                    self.params.acoustic_scale, self.S, self.M, self.mbits)
 
-    def _frame_step_v4(self, frontier, ll, valid):
-        """One whole-batch frame step.  ll: [B, P] contiguous; valid: [B]
-        bool.  Returns (frontier, records {pm, state, f_cost} [B, K] and
-        {lat_pm, lat_cost} [B, R])."""
+    def _pool_v4(self, frontier, ll):
+        """The cost-ordered candidate pool (cb, nsm, pm) of one frame: cb
+        [B, E]; nsm and pm keep only the max(R, K2) cheapest, all that
+        select reads."""
         cbits, nsm, pm = self._expand_v4(frontier["state"], frontier["cost"], ll)
         cb, order = torch.sort(cbits, dim=1, stable=True)
-        return self._select_v4(frontier, (cb, _take(nsm, order), _take(pm, order)), valid)
+        order = order[:, :max(self.R, min(cb.shape[1], self.K2))]
+        return cb, _take(nsm, order), _take(pm, order)
 
-    def _select_v4(self, frontier, sA, valid):
-        """Selection from the cost-ordered candidate pool sA = (cbits, nsm,
-        pm), each [B, E]."""
-        K, S, R = self.K, self.S, self.R
-        tok_state, tok_cost = frontier["state"], frontier["cost"]
+    def _frame_step_v4(self, frontier, ll, valid, out=None):
+        """One whole-batch frame step.  ll: [B, P] (rows may be strided);
+        valid: [B] bool.  Returns (frontier, records {pm, state, f_cost}
+        [B, K] and {lat_pm, lat_cost} [B, R]), the records written into
+        `out` when given."""
+        return self._select_v4(frontier, self._pool_v4(frontier, ll), valid, out)
+
+    def _rank_v4(self, sA):
+        """The selection's sorts over the cost-ordered pool sA = (cb, nsm,
+        pm), each [B, E] (nsm and pm may stop after max(R, K2) columns):
+        dedup by next state on the cheapest K2 (stable sort by (state,
+        cost) as one int64 key), then the winners re-ranked by cost.
+        Returns the tail's inputs (sC_k, o2, sB_n, sB_p, lat_cb, lat_pm)."""
         cb, nsm, pm = sA
-        B, E = cb.shape
-        dev = cb.device
-
-        lat_cb, lat_pm = cb[:, :R], pm[:, :R]  # R <= E by construction
-
-        # dedup by next state on the cost-ordered top-K2 prefix (stable sort
-        # by (state, cost) as one int64 key), then winners re-ranked by cost
-        K2 = min(E, self.K2)
+        K2 = min(cb.shape[1], self.K2)
         c2, n2, p2 = cb[:, :K2], nsm[:, :K2], pm[:, :K2]
         key2 = (n2.long() << 32) | (c2.long() + 2**31)
         _, o = torch.sort(key2, dim=1, stable=True)
         sB_n, sB_c, sB_p = _take(n2, o), _take(c2, o), _take(p2, o)
         first = torch.ones_like(sB_n, dtype=torch.bool)
         first[:, 1:] = sB_n[:, 1:] != sB_n[:, :-1]
-        alive = first & (sB_n != S) & (sB_c < BIG_I32)
+        alive = first & (sB_n != self.S) & (sB_c < BIG_I32)
         key = torch.where(alive, sB_c, BIG_I32)
         sC_k, o2 = torch.sort(key, dim=1, stable=True)
-        sC_n, sC_p = _take(sB_n, o2), _take(sB_p, o2)
-        if K2 < K:
-            pad = K - K2
-            sC_k = torch.nn.functional.pad(sC_k, (0, pad), value=BIG_I32)
-            sC_n = torch.nn.functional.pad(sC_n, (0, pad), value=S)
-            sC_p = torch.nn.functional.pad(sC_p, (0, pad), value=-1)
-        kbits = sC_k[:, :K]
-        new_cost = bits_cost(kbits)
-        keep = (kbits < BIG_I32) & (
-            kbits <= cost_bits(new_cost[:, :1] + self.params.beam)
-        )
-        new_state = torch.where(keep, sC_n[:, :K], S)
-        new_cost = torch.where(keep, new_cost, INF)
-        pm_k = sC_p[:, :K]
-        prev = (pm_k & PM_MASK) >> self.mbits  # logical: masked non-negative
-        silk = (pm_k & PM_SIL_FLAG) != 0
+        # R <= E by construction: the lattice rows are the pool's R cheapest
+        return sC_k, o2, sB_n, sB_p, cb[:, :self.R], pm[:, :self.R]
 
-        prev_ts = self._gather(frontier["tsil"], torch.where(keep, prev, 0))
-        cand_ts = torch.where(
-            silk, ((prev_ts & TSIL_MASK) + 1) | (prev_ts & SPEECH_BIT), SPEECH_BIT
-        )
-        new_tsil = torch.where(keep, cand_ts, 0)
-
-        vb = valid[:, None]
-        new_frontier = {
-            "state": torch.where(vb, new_state, tok_state),
-            "cost": torch.where(vb, new_cost, tok_cost),
-            "tsil": torch.where(vb, new_tsil, frontier["tsil"]),
-        }
-        ident_pm = self._ident_pm[None, :].expand(B, K)
-        rec = {
-            "pm": torch.where(vb, torch.where(keep, pm_k & PM_MASK, -1), ident_pm),
-            "state": new_frontier["state"],
-        }
-        lat_cost = bits_cost(lat_cb)
-        # worst-surviving-winner threshold: keeps every selected token's
-        # inbound arc so the lattice stays connected
-        wk = torch.where(torch.isfinite(new_cost), new_cost, -INF).amax(
-            dim=1, keepdim=True)
-        lkeep = (lat_cb < BIG_I32) & (lat_cost <= wk + self.params.lattice_beam)
-        lat_pm_m = torch.where(lkeep, lat_pm & PM_MASK, -1)
-        lat_cost_m = torch.where(lkeep, lat_cost, INF)
-        # identity lattice rows keep masked frames connected
-        if R > K:
-            id_pm = torch.cat([ident_pm, torch.full(
-                (B, R - K), -1, dtype=torch.int32, device=dev)], dim=1)
-            id_cost = torch.cat([tok_cost, torch.full(
-                (B, R - K), INF, dtype=torch.float32, device=dev)], dim=1)
-        else:
-            id_pm, id_cost = ident_pm[:, :R], tok_cost[:, :R]
-        rec["f_cost"] = new_frontier["cost"]
-        rec["lat_pm"] = torch.where(vb, lat_pm_m, id_pm)
-        rec["lat_cost"] = torch.where(vb, lat_cost_m, id_cost)
-        return new_frontier, rec
+    def _select_v4(self, frontier, sA, valid, out=None):
+        """Selection from the cost-ordered candidate pool sA (see
+        `_rank_v4`): the sorts, then the tail kernel, which writes the
+        records into `out` ({name: [B, K|R]}, allocated when None)."""
+        if out is None:
+            out = self.record_buffers((sA[0].shape[0],), sA[0].device)
+        return self.step_ops.select_tail(
+            *self._rank_v4(sA), frontier, valid, self.params.beam,
+            self.params.lattice_beam, self.S, self.mbits, out)
 
     # ------------------------------------------------------------- chunk API
 
@@ -404,10 +319,9 @@ class BatchViterbi:
             recs = out if out is not None else self.record_buffers((T, B), dev)
             ll32 = loglikes.to(torch.float32)
             for t in range(T):
-                frontier, rec = self._frame_step_v4(
-                    frontier, ll32[:, t].contiguous(), valid[:, t])
-                for k, v in rec.items():
-                    recs[k][t] = v
+                # frame t of the chunk read in place; records written at t
+                frontier, _ = self._frame_step_v4(
+                    frontier, ll32[:, t], valid[:, t], {k: v[t] for k, v in recs.items()})
             best_cost = frontier["cost"].amin(dim=1)
             final_tot = frontier["cost"] + self._final_cost_t[frontier["state"].long()]
             return frontier, recs, best_cost, final_tot.amin(dim=1)

@@ -21,10 +21,17 @@ and prints no result line):
      and a few full-width decoder chunks three ways (the frame-step
      kernels, their plain versions on the same CUDA tensors, CPU):
      frontier and all five record planes must be bit-equal; then the two
-     frame-step kernels (expand_v4, select_tail_v4) against their plain
+     frame-step kernels (expand_v4, select_v4) against their plain
      versions, bit for bit, on one real frame at B = 32 and at B = 1
-     (K = 7000, M = 4, R = 7000), with kernel, plain and bound times, and
-     expand's two ways of reading the ll row, five times each, interleaved;
+     (K = 7000, M = 4, R = 7000) and on a B = 32 frame under load (flat
+     scores, channels at max-active, the whole pool in range), with
+     kernel, plain and bound times,
+     select's yardstick (one stable torch.sort of the same pool, the first
+     of the three sorts it replaces), and expand's two ways of reading the
+     ll row, five times each, interleaved; then one decode_chunk at B = 32
+     under torch.profiler: its device kernels by name with counts per
+     frame, where the frame step may launch only expand_v4 and select_v4's
+     two kernels, at most 3 a frame, and no sort or gather;
   5. serve 8 requests of 3 s seeded noise through BatchRecognizer in 0.2 s
      pieces, with every launch count zeroed just before; every Result()
      must be JSON with a text field, both frame-step kernels must have
@@ -132,21 +139,21 @@ def bound(nbytes, ops=0):
 
 def zero_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
-    from vosk_tpu_torch.ops.frame_step import expand_v4, select_tail_v4
+    from vosk_tpu_torch.ops.frame_step import expand_v4, select_v4
     from vosk_tpu_torch.ops.gather import gather_rows
 
-    expand_v4.launches = select_tail_v4.launches = gather_rows.launches = 0
+    expand_v4.launches = select_v4.launches = gather_rows.launches = 0
 
 
 def read_counts(what):
     """{kernel: launches} since zero_counts(); raises unless both
     frame-step kernels launched."""
-    from vosk_tpu_torch.ops.frame_step import expand_v4, select_tail_v4
+    from vosk_tpu_torch.ops.frame_step import expand_v4, select_v4
     from vosk_tpu_torch.ops.gather import gather_rows
 
-    counts = {"expand_v4": expand_v4.launches, "select_tail_v4": select_tail_v4.launches,
+    counts = {"expand_v4": expand_v4.launches, "select_v4": select_v4.launches,
               "gather_rows": gather_rows.launches}
-    if counts["expand_v4"] <= 0 or counts["select_tail_v4"] <= 0:
+    if counts["expand_v4"] <= 0 or counts["select_v4"] <= 0:
         raise AssertionError(f"{what} did not launch both frame-step kernels: {counts}")
     return counts
 
@@ -220,33 +227,36 @@ def expand_work(torch, dec, fr, P):
     return nbytes, 3 * n_fin  # an add and a fused multiply-add per finite arc
 
 
-def tail_work(torch, K2, valid, rec, mbits):
-    """(bytes, operations) that select_tail_v4 must move and do, from its
-    inputs and the records it wrote: on a valid channel the winners' keys
-    up to the first pruned one, the payload (order, next state, pm word) and
-    old silence count of the kept winners only, the lattice keys up to the
-    first pruned one and the kept rows' pm words; on a masked channel the
-    old frontier; every output once."""
-    Bn, K = rec["pm"].shape
-    R = rec["lat_pm"].shape[1]
-    nbytes = Bn + Bn * (24 * K + 8 * R)
-    for b in range(Bn):
-        if not bool(valid[b]):
-            nbytes += 12 * K
-            continue
-        kept = rec["pm"][b][rec["pm"][b] != -1]
-        lk = int((rec["lat_pm"][b] != -1).sum())
-        prev = torch.unique(kept >> mbits)
-        nbytes += (4 * min(kept.numel() + 1, K2) + 16 * kept.numel()
-                   + 4 * int((prev < K).sum()) + 4 * min(lk + 1, R) + 4 * lk)
-    return nbytes, Bn * (R + 1)  # the beam and lattice-beam additions
+def select_work(torch, pool, valid, beam, lattice_beam, rec):
+    """(bytes, operations) that select_v4 must move and do on this frame:
+    on a valid channel, every candidate's key, the next state and pm word
+    of each candidate within reach of the beams (key at most the range that
+    the channel's best key gives, the cut the kernel makes), and the old
+    silence count of each kept winner; on a masked channel the old
+    frontier; the new frontier and the five record planes once."""
+    from vosk_tpu_torch.ops.frame_step import BIG_I32, bits_cost, cost_bits
+
+    cbits = pool[0]
+    Bn, E = cbits.shape
+    K, R = rec["pm"].shape[1], rec["lat_pm"].shape[1]
+    best = cbits.amin(dim=1, keepdim=True)
+    f = bits_cost(best) + beam
+    u = torch.where(torch.isnan(f), torch.where(cost_bits(f) > 0, float("inf"),
+                                                float("-inf")), f + lattice_beam)
+    lim = torch.maximum(cost_bits(f), cost_bits(torch.nan_to_num(u, nan=float("inf"))))
+    in_range = ((cbits <= lim) & (cbits < BIG_I32)).sum(dim=1)
+    kept = (rec["pm"] >= 0).sum(dim=1)
+    v = valid.long()
+    nbytes = int((v * (4 * E + 8 * in_range + 4 * kept) + (1 - v) * 12 * K).sum())
+    nbytes += Bn + Bn * (12 * K + 12 * K + 8 * R)
+    return nbytes, Bn * (R + 2)  # the beam and lattice-beam additions, one compare a row
 
 
 def phase_frame_step(torch, name, dec, fr, ll, valid):
-    """expand_v4 and select_tail_v4 against their plain versions on one
-    real frame of `dec`: frontier fr [B, K] on the card, ll [B, T, P] with
-    frame T-1 read in place.  Returns {kernel: (ms, plain_ms, bound_ms,
-    bound_by)}; every output must be bit-equal."""
+    """expand_v4 and select_v4 against their plain versions on one real
+    frame of `dec`: frontier fr [B, K] on the card, ll [B, T, P] with frame
+    T-1 read in place.  Returns {kernel: (ms, plain_ms, bound_ms, bound_by,
+    max_abs_err, library_ms)}; every output must be bit-equal."""
     from vosk_tpu_torch.ops import frame_step as fs
 
     Bn, K = fr["state"].shape
@@ -254,42 +264,47 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
     llt = ll[:, -1]
     ex = (dec.em_pack, fr["state"], fr["cost"], llt, dec.params.acoustic_scale, S, M,
           dec.mbits)
-    err = {"expand_v4": 0, "select_tail_v4": 0}
+    err = {"expand_v4": 0, "select_v4": 0}
     ref = fs.expand_v4_plain(*ex)
     for stage in (None, *fs.EXPAND_STAGES):  # the kernel's choice, then each forced
         for a, b in zip(fs.expand_v4(*ex, stage=stage), ref):
             err["expand_v4"] = max(err["expand_v4"], bit_err(torch, a, b))
             if not torch.equal(a, b):
                 raise AssertionError(f"expand_v4 kernel (ll read: {stage}) != plain at {name}")
-    rank = dec._rank_v4(dec._pool_v4(fr, llt))
-    tail = (*rank, fr, valid, dec.params.beam, dec.params.lattice_beam, S, dec.mbits)
+    sel = (*ref, fr, valid, dec.params.beam, dec.params.lattice_beam, S, dec.mbits, dec.K2, R)
     outs = [dec.record_buffers((2, Bn)) for _ in range(2)]
-    kf, krec = fs.select_tail_v4(*tail, {k: v[1] for k, v in outs[0].items()})
-    pf, prec = fs.select_tail_v4_plain(*tail, {k: v[1] for k, v in outs[1].items()})
+    k_out = {k: v[1] for k, v in outs[0].items()}
+    p_out = {k: v[1] for k, v in outs[1].items()}
+    kf, krec = fs.select_v4(*sel, k_out, scratch=dec._select_scratch)
+    pf, prec = fs.select_v4_plain(*sel, p_out)
     torch.cuda.synchronize()
-    for what, got, ref in (("frontier", kf, pf), ("records", krec, prec)):
+    for what, got, want in (("frontier", kf, pf), ("records", krec, prec)):
         for k in got:
-            err["select_tail_v4"] = max(err["select_tail_v4"], bit_err(torch, got[k], ref[k]))
-            if not torch.equal(bits(torch, got[k]), bits(torch, ref[k])):
-                raise AssertionError(f"select_tail_v4 kernel != plain at {name}: {what}[{k}]")
+            err["select_v4"] = max(err["select_v4"], bit_err(torch, got[k], want[k]))
+            if not torch.equal(bits(torch, got[k]), bits(torch, want[k])):
+                raise AssertionError(f"select_v4 kernel != plain at {name}: {what}[{k}]")
     live = int((fr["state"] != S).sum())
-    K2 = rank[0].shape[1]
+    kept = int((pf["cost"] < float("inf")).sum())
     # bounds from what this frame needs: each needed input byte read once,
     # each output byte written once
     ex_b = bound(*expand_work(torch, dec, fr, P))
-    tail_b = bound(*tail_work(torch, K2, valid, prec, dec.mbits))
-    k_out = {k: v[1] for k, v in outs[0].items()}
-    p_out = {k: v[1] for k, v in outs[1].items()}
+    sel_b = bound(*select_work(torch, ref, valid, dec.params.beam, dec.params.lattice_beam,
+                               prec))
+    cbits = ref[0]
     out = {}
-    for kname, kern, plain, (b_ms, b_by) in (
-            ("expand_v4", lambda: fs.expand_v4(*ex), lambda: fs.expand_v4_plain(*ex), ex_b),
-            ("select_tail_v4", lambda: fs.select_tail_v4(*tail, k_out),
-             lambda: fs.select_tail_v4_plain(*tail, p_out), tail_b)):
+    for kname, kern, plain, (b_ms, b_by), lib in (
+            ("expand_v4", lambda: fs.expand_v4(*ex), lambda: fs.expand_v4_plain(*ex), ex_b,
+             None),
+            # yardstick: the first of the three stable sorts select_v4 replaces
+            ("select_v4", lambda: fs.select_v4(*sel, k_out, scratch=dec._select_scratch), lambda: fs.select_v4_plain(*sel, p_out),
+             sel_b, lambda: torch.sort(cbits, dim=1, stable=True))):
         ms, plain_ms = event_ms(torch, kern), event_ms(torch, plain)
-        out[kname] = (ms, plain_ms, b_ms, b_by, err[kname])
-        log(f"{kname} {name} B={Bn} K={K} M={M} R={R} K2={K2} P={P}, {live} live tokens: "
-            f"bit-equal to plain; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
+        lib_ms = event_ms(torch, lib) if lib else None
+        out[kname] = (ms, plain_ms, b_ms, b_by, err[kname], lib_ms)
+        log(f"{kname} {name} B={Bn} K={K} M={M} R={R} K2={dec.K2} P={P}, {live} live tokens, "
+            f"{kept} kept: bit-equal to plain; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms"
+            + (f", stable torch.sort of the pool {lib_ms:.6f} ms" if lib else "")
+            + f", bound {b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
     # the ll row staged in shared memory (bulk copy) against read in place,
     # five times each, interleaved: median [min, max]
     reps = {st: [] for st in fs.EXPAND_STAGES}
@@ -300,6 +315,40 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
         f"{st} {sorted(ts)[2]:.6f} [{min(ts):.6f}, {max(ts):.6f}] ms"
         for st, ts in reps.items()))
     return out
+
+
+def phase_profile(torch, dec, fr, ll, valid):
+    """One decode_chunk at B = 32 under torch.profiler: device kernels by
+    name with launches per frame.  The frame step may launch only the
+    expand_v4 and select_v4 kernels, at most 3 a frame, and no sort or
+    gather; the rest (the chunk-end reductions) must not repeat per frame.
+    Returns {kernel name: launches per frame}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T = ll.shape[1]
+    dec.decode_chunk(fr, ll, valid)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dec.decode_chunk(fr, ll, valid)
+        torch.cuda.synchronize()
+    rows = {}  # device kernel, copy or memset: (launches, device us)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            c, us = rows.get(ev.name, (0, 0.0))
+            rows[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
+    if not rows:
+        raise AssertionError("the profiler recorded no device kernel")
+    step = {k: v for k, v in rows.items() if "expand_v4" in k or "select_v4" in k}
+    per_frame = {k: c / T for k, (c, _) in rows.items()}
+    log(f"profiled decode_chunk B={fr['state'].shape[0]} T={T}: device kernels (launches per "
+        f"frame, device us per frame): " + json.dumps(
+            {k: [per_frame[k], round(us / T, 3)] for k, (c, us) in sorted(rows.items())}))
+    bad = [k for k in rows if "sort" in k.lower() or "gather" in k.lower()]
+    repeats = [k for k, (c, _) in rows.items() if k not in step and c >= T]
+    if bad or repeats or not step or sum(c for c, _ in step.values()) > 3 * T:
+        raise AssertionError(f"the frame step launched more than its kernels: sort/gather "
+                             f"{bad}, per-frame others {repeats}, frame-step kernels {step}")
+    return per_frame
 
 
 def phase_model(torch, dev, tmp):
@@ -419,11 +468,30 @@ def phase_decoder(torch, bm):
     ll = chunks[2].to(dec.device)
     fr, _, _, _ = dec.decode_chunk(fr, ll[:, :T - 1], valid[:, :T - 1].to(dec.device))
     vt = valid[:, T - 1].to(dec.device)
-    return {
+    times = {
         "b32": phase_frame_step(torch, "batch", dec, fr, ll, vt),
         "b1": phase_frame_step(torch, "streaming", dec, {k: v[:1].contiguous() for k, v in fr.items()},
                                ll[:1], vt[:1]),
     }
+    profile = phase_profile(torch, dec, fr, ll, valid.to(dec.device))
+    fr, ll = loaded_frame(torch, bm)
+    times["loaded"] = phase_frame_step(torch, "loaded", dec, fr, ll,
+                                       torch.ones(B, dtype=torch.bool, device=dec.device))
+    return times, profile
+
+
+def loaded_frame(torch, bm, frames=32):
+    """A B = 32 frame under load: the frontier after `frames` frames of flat
+    seeded scores (N(0, 0.1^2) log-likelihoods: every arc stays within the
+    beam, as in speech the model cannot yet tell apart), whose channels
+    fill to max-active and keep their whole pool in range, and the chunk
+    whose last frame is next."""
+    dec = bm._pipeline.dec
+    P = bm._model.am_config.num_pdfs
+    g = torch.Generator().manual_seed(SEED + 11)
+    ll = (torch.randn((B, frames + 1, P), generator=g) * 0.1).to(dec.device)
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(B), ll[:, :frames])
+    return fr, ll
 
 
 def real_frame(torch, dec, P, seed, frames=6):
@@ -871,7 +939,7 @@ def main() -> int:
         bm = phase_model(torch, dev, tmp)
         P = bm._model.am_config.num_pdfs
         phase_front_end(torch, bm)
-        fs_times = phase_decoder(torch, bm)
+        fs_times, profile = phase_decoder(torch, bm)
         launches = phase_serving(torch, bm)
         b1, b1_err = phase_kernel(torch, dev, cases=(
             ("b1_ll", "float32", 1, 6008, 28000),   # streaming acoustic lookup
@@ -924,7 +992,7 @@ def main() -> int:
         **{f"{k}_library_ms": v[4] for k, v in gather_times.items()},
     }]
     for name, site in (("expand_v4", "vosk_tpu/ops/viterbi.py:879"),
-                       ("select_tail_v4", "vosk_tpu/ops/viterbi.py:1105")):
+                       ("select_v4", "vosk_tpu/ops/viterbi.py:1105")):
         main_t = fs_times["b32"][name]
         kernels.append({
             "name": name,
@@ -938,10 +1006,11 @@ def main() -> int:
             "plain_ms": main_t[1],
             "bound_ms": main_t[2],
             "bound_by": main_t[3],
-            "library_ms": None,
+            "library_ms": main_t[5],
             **{f"launches_{k}": v[name] for k, v in paths.items()},
             **{f"{shape}_{k}": t[name][i] for shape, t in fs_times.items() if shape != "b32"
-               for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))},
+               for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"), (5, "library_ms"))},
+            "profiled_launches_per_frame": sum(v for k, v in profile.items() if name in k),
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -77,7 +77,7 @@ def decoded(small_graph):
                   silence_pdfs=SIL, frame_step="auto", pack="packed16",
                   optimize_graph=True)
     td = BatchViterbi(small_graph, DecodeParams(**params), silence_pdfs=SIL,
-                      optimize_graph=True)
+                      optimize_graph=True, device="cpu")
     B, T = 2, 12
     ll = j_bench.make_plausible_loglikes(jd.graph, 64, B, T, seed=9).transpose(1, 0, 2)
     ll = np.ascontiguousarray(ll)

@@ -1,5 +1,5 @@
 """vosk_tpu_torch on the card: the gather kernel, the two frame-step
-kernels, the decoder with them, a streaming KaldiRecognizer decode, and a
+kernels (expand_v4, select_v4), the decoder with them, a streaming KaldiRecognizer decode, and a
 Kaldi-layout directory with i-vectors.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
@@ -15,7 +15,7 @@ import torch
 
 from vosk_tpu_torch.ops import frame_step
 from vosk_tpu_torch.ops.frame_step import (
-    expand_v4, expand_v4_plain, select_tail_v4, select_tail_v4_plain,
+    expand_v4, expand_v4_plain, select_v4, select_v4_plain,
 )
 from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from vosk_tpu_torch.ops.viterbi import BatchViterbi, DecodeParams
@@ -114,10 +114,35 @@ def realistic_graph():
     return make_realistic_graph(num_states=20_000, num_pdfs=64, num_words=500, seed=3)
 
 
+def _same_selection(cuda_device, pool, fr, valid, beam, lattice_beam, S, mbits, K2, R):
+    """select_v4 against select_v4_plain on the same CUDA tensors, bit for
+    bit, the records written into views of [3, B, K|R] buffers at frame 1
+    and valid read as a column of a [B, 2] mask."""
+    B, K = fr["state"].shape
+    mask = torch.ones((B, 2), dtype=torch.bool, device=cuda_device)
+    mask[:, 1] = valid
+    shapes = {"pm": (torch.int32, K), "state": (torch.int32, K), "f_cost": (torch.float32, K),
+              "lat_pm": (torch.int32, R), "lat_cost": (torch.float32, R)}
+    bufs = [{k: torch.full((3, B, n), 7, dtype=dt, device=cuda_device)
+             for k, (dt, n) in shapes.items()} for _ in range(2)]
+    args = (*pool, fr, mask[:, 1], beam, lattice_beam, S, mbits, K2, R)
+    before = select_v4.launches
+    kf, krec = select_v4(*args, {k: v[1] for k, v in bufs[0].items()})
+    torch.cuda.synchronize()
+    assert select_v4.launches == before + 1
+    pf, prec = select_v4_plain(*args, {k: v[1] for k, v in bufs[1].items()})
+    for k in kf:
+        assert torch.equal(_bits(kf[k]), _bits(pf[k])), k
+        assert kf[k].data_ptr() != fr[k].data_ptr()
+    for k in krec:
+        assert krec[k].data_ptr() == bufs[0][k][1].data_ptr()
+        assert torch.equal(_bits(krec[k]), _bits(prec[k])), k
+    return pf, prec
+
+
 @pytest.mark.parametrize("B,K", [(4, 256), (4, 2048), (32, 1024)])
-def test_select_tail_kernel_matches_plain(cuda_device, realistic_graph, B, K):
-    """The tail on real pools (a masked channel, an empty one, +inf costs),
-    writing into record_buffers views at frame t."""
+def test_select_kernel_matches_plain_real_frames(cuda_device, realistic_graph, B, K):
+    """select_v4 on real pools: a masked channel, an empty one, +inf costs."""
     dec = BatchViterbi(realistic_graph, DecodeParams(beam=10.0, max_active=K, lattice_beam=6.0),
                        silence_pdfs=np.array([0, 1]), optimize_graph=True,
                        device=cuda_device)
@@ -130,21 +155,96 @@ def test_select_tail_kernel_matches_plain(cuda_device, realistic_graph, B, K):
     fr["state"][-1], fr["cost"][-1] = dec.S, float("inf")
     valid = torch.ones(B, dtype=torch.bool, device=cuda_device)
     valid[1] = False
-    args = dec._rank_v4(dec._pool_v4(fr, ll[:, 3].to(cuda_device)))
-    tail = (fr, valid, 10.0, 6.0, dec.S, dec.mbits)
-    bufs = [dec.record_buffers((3, B)) for _ in range(2)]
-    before = select_tail_v4.launches
-    kf, krec = select_tail_v4(*args, *tail, {k: v[1] for k, v in bufs[0].items()})
-    torch.cuda.synchronize()
-    assert select_tail_v4.launches == before + 1
-    pf, prec = select_tail_v4_plain(*args, *tail, {k: v[1] for k, v in bufs[1].items()})
-    for k in kf:
-        assert torch.equal(_bits(kf[k]), _bits(pf[k])), k
-        assert kf[k].data_ptr() != fr[k].data_ptr()
-    for k in krec:
-        assert krec[k].data_ptr() == bufs[0][k][1].data_ptr()
-        assert torch.equal(_bits(krec[k]), _bits(prec[k])), k
+    pool = expand_v4(dec.em_pack, fr["state"], fr["cost"], ll[:, 3].to(cuda_device), 1.0,
+                     dec.S, dec.M, dec.mbits)
+    _same_selection(cuda_device, pool, fr, valid, 10.0, 6.0, dec.S, dec.mbits, dec.K2, dec.R)
     assert (dec.R > dec.K) == (K < 2048)
+
+
+def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad):
+    """A pool [B, K*M] as expand writes it: costs on `levels` quantised
+    values (runs of equal keys across the K2 and R cuts), a share `pad` of
+    padding slots (BIG, state S), next states drawn from `n_states`;
+    channel 1 masked, channel 2 all padding, channel 3 all at +inf."""
+    E = K * M
+    q = rng.integers(0, levels, (B, E))
+    cost = torch.from_numpy((q * step - 2.0).astype(np.float32))
+    cb = frame_step.cost_bits(cost).numpy().copy()
+    nsm = rng.choice(S, n_states, replace=False)[rng.integers(0, n_states, (B, E))]
+    padded = rng.random((B, E)) < pad
+    cb[padded], nsm[padded] = frame_step.BIG_I32, S
+    valid = np.ones(B, bool)
+    if B >= 4:
+        valid[1] = False
+        cb[2], nsm[2] = frame_step.BIG_I32, S
+        cb[3] = np.where(cb[3] < frame_step.BIG_I32, 0x7F800000, cb[3])
+    mbits = max((M - 1).bit_length(), 1)
+    e = np.arange(E)
+    pm = ((e // M) << mbits) | (e % M)
+    pm = pm + (rng.integers(0, 2, (B, E)) << 30)
+    return ([torch.from_numpy(np.ascontiguousarray(x, np.int32)) for x in (cb, nsm, pm)],
+            torch.from_numpy(valid), mbits)
+
+
+@pytest.mark.parametrize("B,K,M,R,levels,step,n_states,pad,beams", [
+    (4, 256, 4, 512, 40, 0.5, 100, 0.2, (10.0, 6.0)),       # ties across K2 = R = 512
+    (4, 2048, 4, 2048, 300, 0.05, 900, 0.2, (10.0, 6.0)),   # R = K
+    (4, 7000, 4, 7000, 400, 0.05, 5000, 0.2, (13.0, 6.0)),   # the decoder's K, in range
+    (1, 7000, 4, 7000, 40, 0.25, 20000, 0.1, (1e3, 1e3)),   # whole pool in range: radix cut
+    (2, 7000, 4, 7000, 3, 0.5, 3000, 0.0, (1e3, 1e3)),      # three runs of ~9000 equal keys
+    (1, 7000, 266, 7000, 500, 0.05, 20000, 0.97, (13.0, 6.0)),  # split-graph width, padded
+    (4, 124, 266, 252, 100, 0.1, 300, 0.9, (13.0, 6.0)),    # grammar shape: R > K
+    # max-active 10,000: K2 = 20,000 ranked in global scratch
+    (4, 10000, 4, 10000, 3000, 0.01, 20000, 0.2, (3.0, 2.0)),   # a narrow beam
+    (1, 10000, 4, 10000, 40, 0.25, 25000, 0.1, (1e3, 1e3)),     # all in range: radix cut
+])
+def test_select_kernel_matches_plain_tie_heavy(cuda_device, B, K, M, R, levels, step, n_states,
+                                               pad, beams):
+    rng = np.random.default_rng(K + M + levels)
+    S = 30000
+    pool, valid, mbits = _tie_pool(rng, B, K, M, S, levels, step, n_states, pad)
+    fr = {"state": torch.from_numpy(rng.integers(0, S, (B, K)).astype(np.int32)),
+          "cost": torch.from_numpy(rng.standard_normal((B, K)).astype(np.float32)),
+          "tsil": torch.from_numpy(rng.integers(0, 1 << 22, (B, K)).astype(np.int32))}
+    fr = {k: v.to(cuda_device) for k, v in fr.items()}
+    pool = [x.to(cuda_device) for x in pool]
+    pf, prec = _same_selection(cuda_device, pool, fr, valid.to(cuda_device), *beams, S, mbits,
+                               2 * K, R)
+    assert torch.isfinite(pf["cost"][0]).any() and (prec["lat_pm"][0] != -1).any()
+
+
+def test_decoder_above_shared_cap_bit_equal(cuda_device, realistic_graph):
+    """max-active 10,000 on a 20,000-state graph: K2 = 20,000 candidates are
+    more than select_v4 ranks in shared memory, so its second kernel ranks
+    in global scratch; kernels == plain over chunks of flat scores that fill
+    the frontier, on one decoder (its scratch reused across frames)."""
+    dec = BatchViterbi(realistic_graph,
+                       DecodeParams(beam=13.0, max_active=10000, lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True,
+                       device=cuda_device)
+    assert dec.K == 10000 and max(dec.K2, dec.R) > frame_step.SELECT_SHARED_CAP
+    B, T = 2, 10
+    gen = torch.Generator().manual_seed(6)
+    chunks = [torch.randn((B, T, 64), generator=gen) * s for s in (0.1, 0.1, 2.0)]
+
+    def run(ops):
+        dec.step_ops = ops
+        fr, outs = dec.init_frontier(B), []
+        for ll in chunks:
+            fr, rec, _, _ = dec.decode_chunk(fr, ll.to(cuda_device))
+            outs.append({**{f"frontier.{k}": v.cpu() for k, v in fr.items()},
+                         **{k: v.cpu() for k, v in rec.items()}})
+        return outs
+
+    try:
+        kern = run(frame_step.KERNELS)
+        plain = run(frame_step.PLAIN)
+    finally:
+        dec.step_ops = frame_step.KERNELS
+    for a, b in zip(kern, plain):
+        for k in a:
+            assert torch.equal(_bits(a[k]), _bits(b[k])), k
+    assert torch.isfinite(kern[1]["frontier.cost"]).sum(1).min() > 5000  # about 8,000 live
 
 
 def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device, realistic_graph):
@@ -168,10 +268,10 @@ def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device, realistic_graph):
                "best": best, "best_final": bestf}
         return {k: v.cpu() for k, v in out.items()}
 
-    before = (expand_v4.launches, select_tail_v4.launches, gather_rows.launches)
+    before = (expand_v4.launches, select_v4.launches, gather_rows.launches)
     kern = run(dec, frame_step.KERNELS)
-    # one launch of each frame-step kernel per frame; no gather on the path
-    assert (expand_v4.launches - before[0], select_tail_v4.launches - before[1],
+    # one call of each frame-step kernel per frame; no gather on the path
+    assert (expand_v4.launches - before[0], select_v4.launches - before[1],
             gather_rows.launches - before[2]) == (T, T, 0)
     plain = run(dec, frame_step.PLAIN)
     cpu = run(dec.to("cpu"), frame_step.KERNELS)
@@ -210,9 +310,9 @@ def test_kaldi_recognizer_on_card(cuda_device, tmp_path):
         outs.append(rec.FinalResult())
         return outs, on_card
 
-    before = (expand_v4.launches, select_tail_v4.launches)
+    before = (expand_v4.launches, select_v4.launches)
     outs, on_card = run("cuda")
-    assert on_card and expand_v4.launches > before[0] and select_tail_v4.launches > before[1]
+    assert on_card and expand_v4.launches > before[0] and select_v4.launches > before[1]
     assert "text" in json.loads(outs[-1])
     cpu_outs, _ = run("cpu")
     assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
@@ -255,9 +355,9 @@ def test_kaldi_dir_with_ivectors_on_card(cuda_device, tmp_path):
         outs.append(rec.FinalResult())
         return outs, r, state_on
 
-    before = (expand_v4.launches, select_tail_v4.launches)
+    before = (expand_v4.launches, select_v4.launches)
     outs, r, state_on = run("cuda")
-    assert expand_v4.launches > before[0] and select_tail_v4.launches > before[1]
+    assert expand_v4.launches > before[0] and select_v4.launches > before[1]
     assert set(state_on.values()) == {"cuda"}
     assert r._iv_frames_weighted > 0
     cpu_outs, _, _ = run("cpu")

@@ -27,7 +27,7 @@ def _pair(kind):
                 num_ceps=40, use_energy=False)
         return F.FbankOptions(frame_opts=fo)
 
-    return JF.FeatureExtractor(opts(JF)), TF.FeatureExtractor(opts(TF))
+    return JF.FeatureExtractor(opts(JF)), TF.FeatureExtractor(opts(TF), device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["mfcc_energy", "mfcc_bench", "fbank"])

@@ -2,11 +2,14 @@
 
 The plain versions of the two frame-step kernels (what the wrappers run on
 CPU tensors) must be bit-equal to the JAX decoder's `_expand_v4` (jitted,
-as `decode_chunk` runs it) and `_select_v4`, on inputs taken from real
-frames: dead tokens, log-likelihoods holding -inf, a masked channel, an
-empty channel, +inf costs, M = 4 and wide rows, R > K and R = K.
-tests/test_torch_cuda.py holds the kernels to these plain versions on the
-card.
+as `decode_chunk` runs it) and its pool sort + `_select_v4`, on inputs
+taken from real frames: dead tokens, log-likelihoods holding -inf, a
+masked channel, an empty channel, +inf costs, M = 4 and wide rows, R > K
+and R = K.  The selection is also stated here in numpy without a sort of
+the pool (order statistics, a per-state minimum, ranks of the survivors),
+which is how the select_v4 kernel computes it, and held to the JAX
+function on tie-heavy synthetic pools.  tests/test_torch_cuda.py holds the
+kernels to these plain versions on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,7 @@ from vosk_tpu.ops.viterbi import BatchViterbi as JViterbi, DecodeParams as JPara
 from vosk_tpu.utils.benchdata import make_plausible_loglikes, make_realistic_graph
 from vosk_tpu_torch.ops import frame_step
 from vosk_tpu_torch.ops.frame_step import (
-    expand_v4, expand_v4_plain, select_tail_v4, sub_scaled,
+    expand_v4, expand_v4_plain, select_v4, select_v4_plain, sub_scaled,
 )
 from vosk_tpu_torch.ops.viterbi import BatchViterbi, DecodeParams
 
@@ -56,7 +59,7 @@ def _decoders(g, K, scale=1.0, padded_max_out=16):
     params = dict(beam=10.0, max_active=K, lattice_beam=6.0, acoustic_scale=scale)
     jd = JViterbi(g, JParams(**params), lattice_records=True, silence_pdfs=SIL,
                   frame_step="v4", pack="packed16", padded_max_out=padded_max_out)
-    td = BatchViterbi(g, DecodeParams(**params), silence_pdfs=SIL)
+    td = BatchViterbi(g, DecodeParams(**params), silence_pdfs=SIL, device="cpu")
     assert (jd.K, jd.R, jd.M, jd.mbits) == (td.K, td.R, td.M, td.mbits)
     return jd, td
 
@@ -151,12 +154,39 @@ def test_expand_plain_reads_strided_ll(realistic):
 
 
 def _pool(td, fr, frame):
-    """The cost-ordered candidate pool of a real frame, as the source's
-    one-key lax.sort leaves it."""
-    cbits, nsm, pm = expand_v4_plain(td.em_pack, fr["state"], fr["cost"],
-                                     torch.from_numpy(frame), 1.0, td.S, td.M, td.mbits)
-    cb, order = torch.sort(cbits, dim=1, stable=True)
-    return cb, torch.gather(nsm, 1, order), torch.gather(pm, 1, order)
+    """The unsorted candidate pool of a real frame, as expand leaves it."""
+    return expand_v4_plain(td.em_pack, fr["state"], fr["cost"], torch.from_numpy(frame), 1.0,
+                           td.S, td.M, td.mbits)
+
+
+def _jax_select(jd, fr, pool, valid):
+    """The source's pool sort and `_select_v4`, jitted as `decode_chunk`
+    runs them."""
+    def f(fr, pool, valid):
+        return jd._select_v4(fr, jax.lax.sort(pool, num_keys=1, dimension=1), valid)
+
+    jf, jr = jax.jit(f)({k: jnp.asarray(np.asarray(v)) for k, v in fr.items()},
+                        tuple(jnp.asarray(np.asarray(x)) for x in pool), jnp.asarray(valid))
+    return {k: np.asarray(v) for k, v in jf.items()}, {k: np.asarray(v) for k, v in jr.items()}
+
+
+def _port_select(td, fr, pool, valid):
+    B = fr["state"].shape[0]
+    before = {k: v.clone() for k, v in fr.items()}
+    tf, tr = select_v4(*pool, fr, torch.from_numpy(valid), td.params.beam,
+                       td.params.lattice_beam, td.S, td.mbits, td.K2, td.R,
+                       td.record_buffers((B,)))
+    for k in fr:
+        assert torch.equal(fr[k], before[k]) and tf[k] is not fr[k]  # old frontier kept
+    return {k: v.numpy() for k, v in tf.items()}, {k: v.numpy() for k, v in tr.items()}
+
+
+def _same(a, b, what):
+    assert set(a[1]) == set(b[1])
+    for k in a[0]:
+        _eq(a[0][k], b[0][k], f"{what} frontier[{k}]")
+    for k in a[1]:
+        _eq(a[1][k], b[1][k], f"{what} records[{k}]")
 
 
 def _select_case(g, K, B, seed):
@@ -171,19 +201,11 @@ def _select_case(g, K, B, seed):
     frame[2, :] = -np.inf  # every candidate of a live channel at +inf
     valid = np.ones(B, bool)
     valid[1] = False  # a masked channel
-    sA = _pool(td, fr, frame)
-    jfr = {k: jnp.asarray(v.numpy()) for k, v in fr.items()}
-    jf, jr = jax.jit(jd._select_v4)(jfr, tuple(jnp.asarray(x.numpy()) for x in sA),
-                                    jnp.asarray(valid))
-    before = {k: v.clone() for k, v in fr.items()}
-    tf, tr = td._select_v4(fr, sA, torch.from_numpy(valid))
-    for k in ("state", "cost", "tsil"):
-        _eq(tf[k].numpy(), jf[k], f"frontier[{k}]")
-        assert torch.equal(fr[k], before[k]) and tf[k] is not fr[k]  # old frontier kept
-    assert set(tr) == set(jr)
-    for k in jr:
-        _eq(tr[k].numpy(), jr[k], f"records[{k}]")
-    assert (sA[0] == 0x7F800000).any() and not np.isfinite(np.asarray(jf["cost"][-1])).any()
+    pool = _pool(td, fr, frame)
+    j = _jax_select(jd, fr, pool, valid)
+    _same(_port_select(td, fr, pool, valid), j, "plain")
+    _same(_spec_select(td, fr, pool, valid), j, "numpy statement")
+    assert (pool[0] == 0x7F800000).any() and not np.isfinite(j[0]["cost"][-1]).any()
     return td
 
 
@@ -195,6 +217,130 @@ def test_select_plain_bit_equal_r_above_k(realistic):
 def test_select_plain_bit_equal_r_equal_k(realistic):
     td = _select_case(realistic, 2048, B=4, seed=6)
     assert td.R == td.K == 2048
+
+
+# ------------------------------------------------ select in numpy, no sort
+
+
+def _cost_bits(c):
+    cb = np.asarray(c, np.float32).view(np.int32).astype(np.int64)
+    return np.where(cb < 0, -(2**31) - cb, cb).astype(np.int32)
+
+
+def _bits_cost(k):
+    k = np.asarray(k, np.int64)
+    return np.where(k < 0, -(2**31) - k, k).astype(np.int32).view(np.float32)
+
+
+def _spec_select(td, fr, pool, valid):
+    """What select computes, stated without a sort of the pool.  Per
+    channel, over the 64-bit key (cbits, e): D is the K2 smallest keys (an
+    order statistic); each next state's winner is its smallest key in D;
+    the winners ranked by (cbits, state) fill the frontier within the beam
+    from the best winner; the lattice rows are the R smallest keys, kept
+    within wk + lattice_beam of the worst finite kept winner wk."""
+    BIG, S, K, R, mbits = frame_step.BIG_I32, td.S, td.K, td.R, td.mbits
+    beam = np.float32(td.params.beam)
+    lb = np.float32(td.params.lattice_beam)
+    cb, nsm, pm = (np.asarray(x) for x in pool)
+    st, co, ts = (np.asarray(fr[k]) for k in ("state", "cost", "tsil"))
+    B, E = cb.shape
+    K2 = min(E, td.K2)
+    nf = {"state": np.full((B, K), S, np.int32), "cost": np.full((B, K), np.inf, np.float32),
+          "tsil": np.zeros((B, K), np.int32)}
+    rec = {"pm": np.full((B, K), -1, np.int32), "lat_pm": np.full((B, R), -1, np.int32),
+           "lat_cost": np.full((B, R), np.inf, np.float32)}
+    slot = np.arange(K, dtype=np.int32)
+    for b in range(B):
+        if not valid[b]:  # the old frontier, identity records
+            nf["state"][b], nf["cost"][b], nf["tsil"][b] = st[b], co[b], ts[b]
+            rec["pm"][b] = frame_step.PM_IDENT_FLAG | (slot << mbits)
+            n = min(K, R)
+            rec["lat_pm"][b, :n] = rec["pm"][b, :n]
+            rec["lat_cost"][b, :n] = co[b, :n]
+            continue
+        key = ((cb[b].astype(np.int64) + 2**31).astype(np.uint64) << np.uint64(32)) | \
+            np.arange(E, dtype=np.uint64)
+        in_d = key <= np.partition(key, K2 - 1)[K2 - 1]
+        live = in_d & (cb[b] < BIG) & (nsm[b] != S)
+        states, inv = np.unique(nsm[b][live], return_inverse=True)
+        wmin = np.full(states.size, np.iinfo(np.uint64).max)
+        np.minimum.at(wmin, inv, key[live])
+        w_cb = ((wmin >> np.uint64(32)).astype(np.int64) - 2**31).astype(np.int32)
+        rank = np.lexsort((states, w_cb))[:K]  # the survivors only
+        w_cb, w_n = w_cb[rank], states[rank]
+        w_e = (wmin[rank] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        keep = np.zeros(0, bool)
+        if w_cb.size:
+            thr = _cost_bits(_bits_cost(w_cb[0]) + beam)
+            keep = w_cb <= thr
+        n = int(keep.sum())  # keep is a prefix: w_cb ascends
+        p = pm[b, w_e[:n]]
+        prev = (p & frame_step.PM_MASK) >> mbits
+        pts = np.where(prev < K, ts[b, np.minimum(prev, K - 1)], 0)
+        sil = (p & frame_step.PM_SIL_FLAG) != 0
+        nf["state"][b, :n] = w_n[:n]
+        nf["cost"][b, :n] = _bits_cost(w_cb[:n])
+        nf["tsil"][b, :n] = np.where(
+            sil, ((pts & frame_step.TSIL_MASK) + 1) | (pts & frame_step.SPEECH_BIT),
+            frame_step.SPEECH_BIT)
+        rec["pm"][b, :n] = p & frame_step.PM_MASK
+        kc = nf["cost"][b, :n]
+        fin = kc[np.isfinite(kc)]
+        wk = fin.max() if fin.size else np.float32(-np.inf)
+        nr = min(R, E)
+        rows = np.sort(key[key <= np.partition(key, nr - 1)[nr - 1]])  # the R survivors
+        r_cb = ((rows >> np.uint64(32)).astype(np.int64) - 2**31).astype(np.int32)
+        r_e = (rows & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        r_cost = _bits_cost(r_cb)
+        lkeep = (r_cb < BIG) & (r_cost <= np.float32(wk + lb))
+        rec["lat_pm"][b, :nr] = np.where(lkeep, pm[b, r_e] & frame_step.PM_MASK, -1)
+        rec["lat_cost"][b, :nr] = np.where(lkeep, r_cost, np.inf)
+    rec["state"], rec["f_cost"] = nf["state"].copy(), nf["cost"].copy()
+    return nf, rec
+
+
+def _tie_pool(rng, td, B, E, levels, step, n_states):
+    """A synthetic pool [B, E] as expand writes it: costs on `levels`
+    quantised values (long runs of equal keys), a fifth of the slots
+    padding (BIG, state S), next states drawn from `n_states`, pm words with
+    prev < K and random silence flags.  Channel 1 is masked, channel 2 all
+    padding, channel 3 all at +inf."""
+    q = rng.integers(0, levels, (B, E))
+    cb = _cost_bits((q * step - 2.0).astype(np.float32))
+    nsm = rng.choice(td.S, n_states, replace=False)[rng.integers(0, n_states, (B, E))]
+    pad = rng.random((B, E)) < 0.2
+    cb[pad], nsm[pad] = frame_step.BIG_I32, td.S
+    cb[2], nsm[2] = frame_step.BIG_I32, td.S
+    cb[3] = np.where(cb[3] < frame_step.BIG_I32, 0x7F800000, cb[3])
+    e = np.arange(E)
+    pm = ((e % td.K) << td.mbits) | (e // td.K % (1 << td.mbits))
+    pm = pm + (rng.integers(0, 2, (B, E)) << 30)
+    valid = np.ones(B, bool)
+    valid[1] = False
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32)) for x in (cb, nsm, pm)), valid
+
+
+@pytest.mark.parametrize("K,E,levels,step,n_states", [
+    (256, 1024, 40, 0.5, 100),    # runs of ~20 equal keys straddle the K2 = R = 512 cuts
+    (256, 1024, 4, 0.5, 30),      # every state has candidates in D and past it
+    (256, 256, 12, 1.5, 60),      # a pool smaller than K2 (and R), as at M = 1
+    (2048, 8192, 300, 0.05, 900),  # R = K = 2048, K2 = 4096
+    (256, 2048, 2000, 0.001, 400),  # a run past the beam, few ties
+])
+def test_select_spec_bit_equal_on_tie_heavy_pools(realistic, K, E, levels, step, n_states):
+    jd, td = _decoders(realistic, K)
+    rng = np.random.default_rng(K + E + levels)
+    pool, valid = _tie_pool(rng, td, 4, E, levels, step, n_states)
+    fr = td.init_frontier(4)
+    fr["state"] = torch.from_numpy(rng.integers(0, td.S, (4, td.K)).astype(np.int32))
+    fr["cost"] = torch.from_numpy(rng.standard_normal((4, td.K)).astype(np.float32))
+    fr["tsil"] = torch.from_numpy(rng.integers(0, 1 << 22, (4, td.K)).astype(np.int32))
+    j = _jax_select(jd, fr, pool, valid)
+    _same(_spec_select(td, fr, pool, valid), j, "numpy statement")
+    _same(_port_select(td, fr, pool, valid), j, "plain")
+    assert np.isfinite(j[0]["cost"][0]).any()
+    assert np.isposinf(j[0]["cost"][2]).all() and (j[1]["lat_pm"][3] == -1).all()
 
 
 def test_wide_rows_decode_bit_equal(wide):
@@ -237,12 +383,13 @@ def test_decode_chunk_writes_into_out_views(realistic):
 def test_cpu_tensors_use_plain_and_count_no_launch(realistic):
     _, td = _decoders(realistic, 256)
     assert td.step_ops == frame_step.KERNELS
+    assert frame_step.PLAIN == (expand_v4_plain, select_v4_plain)
     ll = torch.from_numpy(_scores(td.graph, 64, 2, 3, seed=10))
-    before = (expand_v4.launches, select_tail_v4.launches)
+    before = (expand_v4.launches, select_v4.launches)
     fk, rk, _, _ = td.decode_chunk(td.init_frontier(2), ll)
     td.step_ops = frame_step.PLAIN
     fp, rp, _, _ = td.decode_chunk(td.init_frontier(2), ll)
-    assert (expand_v4.launches, select_tail_v4.launches) == before
+    assert (expand_v4.launches, select_v4.launches) == before
     for k in fk:
         _eq(fp[k].numpy(), fk[k].numpy(), k)
     for k in rk:
@@ -267,24 +414,76 @@ def test_expand_wrapper_rejects(realistic, bad):
         expand_v4(**args, acoustic_scale=1.0, S=td.S, M=td.M, mbits=td.mbits)
 
 
-@pytest.mark.parametrize("bad", ["valid", "out_shape", "o2_dtype"])
-def test_select_tail_wrapper_rejects(realistic, bad):
+@pytest.mark.parametrize("bad", ["valid", "out_shape", "nsm_dtype", "pm_cols"])
+def test_select_wrapper_rejects(realistic, bad):
     _, td = _decoders(realistic, 256)
-    B, K, R = 2, td.K, td.R
+    B = 2
     fr = td.init_frontier(B)
-    k2 = torch.zeros((B, td.K2), dtype=torch.int32)
-    o2 = torch.zeros((B, td.K2), dtype=torch.int64)
-    pool = torch.zeros((B, R), dtype=torch.int32)
+    pool = [torch.zeros((B, td.E), dtype=torch.int32) for _ in range(3)]
     valid = torch.ones(B, dtype=torch.bool)
     out = td.record_buffers((B,))
     if bad == "valid":
         valid = valid.int()
     elif bad == "out_shape":
-        out["lat_pm"] = torch.zeros((B, K), dtype=torch.int32)
+        out["lat_pm"] = torch.zeros((B, td.K), dtype=torch.int32)
+    elif bad == "nsm_dtype":
+        pool[1] = pool[1].long()
     else:
-        o2 = o2.int()
+        pool[2] = pool[2][:, :-1]
     with pytest.raises((TypeError, ValueError)):
-        select_tail_v4(k2, o2, k2, k2, pool, pool, fr, valid, 10.0, 6.0, td.S, td.mbits, out)
+        select_v4(*pool, fr, valid, 10.0, 6.0, td.S, td.mbits, td.K2, td.R, out)
+
+
+@pytest.mark.parametrize("K2,R,ranked_in_global", [
+    (512, 512, False), (16384, 7000, False), (20000, 10000, True), (16384, 16385, True)])
+def test_select_scratch_sizes_and_reuse(K2, R, ranked_in_global):
+    """select_v4's scratch: pass 1's counters set once (BIG, 0) and its
+    list [B * E]; pass 2's global buffers only past SELECT_SHARED_CAP
+    ranked candidates, at the kernel's sort sizes; reused per (device,
+    stream) and grown, never shrunk."""
+    sc = frame_step.SelectScratch()
+    dev = torch.device("cpu")
+    B, E = 3, 40000
+    buf = sc.buffers(dev, 7, B, E, K2, R)
+    assert torch.equal(buf["best"], torch.full((B,), frame_step.BIG_I32, dtype=torch.int32))
+    assert torch.equal(buf["count"], torch.zeros(B, dtype=torch.int32))
+    assert buf["list"].numel() == B * E and buf["list"].dtype == torch.int64
+    N = max(K2, R)
+    if ranked_in_global:
+        pow2 = 1 << (N - 1).bit_length()
+        assert (buf["x"].numel(), buf["y"].numel(), buf["w"].numel()) == (
+            B * pow2, B * N, B * (1 << (K2 - 1).bit_length()))
+    else:
+        assert buf["x"] is None and buf["y"] is None and buf["w"] is None
+    same = sc.buffers(dev, 7, 2, E, K2, R)
+    for k, v in buf.items():
+        assert (v is None and same[k] is None) or v.data_ptr() == same[k].data_ptr(), k
+    grown = sc.buffers(dev, 7, 4, E, K2, R)
+    assert grown["list"].numel() == 4 * E and grown["best"].numel() == 4
+    assert sc.buffers(dev, 8, B, E, K2, R)["list"].data_ptr() != grown["list"].data_ptr()
+
+
+def test_decoder_owns_its_select_scratch(realistic):
+    """Each decoder keeps its own select_v4 scratch, freed with it; a copy
+    on another device gets a new one."""
+    _, td = _decoders(realistic, 256)
+    assert isinstance(td._select_scratch, frame_step.SelectScratch)
+    assert td.to("cpu")._select_scratch is not td._select_scratch
+
+
+def test_entry_points_default_to_the_card():
+    """The port's public constructors run on the card unless asked for the
+    CPU (read from their signatures; nothing is built)."""
+    import inspect
+
+    from vosk_tpu_torch.models.am import Nnet3Am
+    from vosk_tpu_torch.models.tdnnf import TdnnfModel, tdnnf_params_from_jax
+    from vosk_tpu_torch.ops.features import FeatureExtractor
+    from vosk_tpu_torch.ops.ivector import OnlineIvectorExtractor
+
+    for fn in (BatchViterbi, Nnet3Am, TdnnfModel, tdnnf_params_from_jax, FeatureExtractor,
+               OnlineIvectorExtractor):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
 def test_kernel_library_keyed_by_every_source(tmp_path, monkeypatch):

@@ -52,7 +52,7 @@ def test_stream_chunks_and_flush_match(dtype):
         if k.endswith("_scale"):
             params[k] = rng.uniform(0.5, 1.5, params[k].shape).astype(np.float32)
     jm = JModel(jcfg, params)
-    tm = tdnnf_params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}, cfg)
+    tm = tdnnf_params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}, cfg, device="cpu")
 
     B, F = 2, 21
     js, ts = jm.init_stream_state(B, F), tm.init_stream_state(B, F)
@@ -87,7 +87,7 @@ def test_bf16_matmul_keeps_f32_products():
                       prefinal_dim=32, num_pdfs=40, time_strides=(1, 0, 3),
                       compute_dtype="bfloat16")
     params = init_params(cfg, seed=1)
-    tm = tdnnf_params_from_jax(params, cfg)
+    tm = tdnnf_params_from_jax(params, cfg, device="cpu")
     x = np.random.default_rng(6).standard_normal((2, 30, 60)).astype(np.float32)
     want = jnp.matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(params["tdnn1_w"], jnp.bfloat16),
                       preferred_element_type=jnp.float32)

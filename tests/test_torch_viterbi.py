@@ -37,7 +37,7 @@ def test_v4_bit_equal(graph, B, K, scale):
     jd = JViterbi(graph, JParams(**params), lattice_records=True, silence_pdfs=SIL,
                   frame_step="auto", pack="packed16", optimize_graph=True)
     td = BatchViterbi(graph, DecodeParams(**params), silence_pdfs=SIL,
-                      optimize_graph=True)
+                      optimize_graph=True, device="cpu")
     assert (jd.frame_step, jd.pack, jd.K, jd.R, jd.M) == ("v4", "packed16", td.K, td.R, td.M)
     assert (jd._ragged_G(B) > 1) == (B == 16)
 
@@ -79,4 +79,4 @@ def test_v4_bit_equal(graph, B, K, scale):
 
 def test_rejects_graph_not_v4_eligible(graph):
     with pytest.raises(ValueError):
-        BatchViterbi(graph, DecodeParams(max_active=64))  # eps arcs left in place
+        BatchViterbi(graph, DecodeParams(max_active=64), device="cpu")  # eps arcs left in place

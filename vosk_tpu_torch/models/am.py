@@ -75,7 +75,7 @@ class Nnet3Am(nn.Module, StreamingAm):
         acoustic_input: str = "input",
         ivector_input: str = "ivector",
         output: str = "output",
-        device="cpu",
+        device="cuda",
     ):
         super().__init__()
         net.check_acyclic()

@@ -94,7 +94,7 @@ class TdnnfModel(nn.Module, StreamingAm):
     """TDNN-F forward over parameters held as (frozen) module parameters;
     streaming state = carried feature context (StreamingAm)."""
 
-    def __init__(self, cfg: TdnnfConfig, params: dict, device="cpu"):
+    def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda"):
         super().__init__()
         if cfg.ivector_dim:
             raise NotImplementedError(
@@ -161,7 +161,7 @@ class TdnnfModel(nn.Module, StreamingAm):
         return self.cfg.right_context
 
 
-def tdnnf_params_from_jax(params: dict, cfg: TdnnfConfig, device="cpu") -> TdnnfModel:
+def tdnnf_params_from_jax(params: dict, cfg: TdnnfConfig, device="cuda") -> TdnnfModel:
     """The port's module holding the JAX package's TDNN-F parameters
     (`vosk_tpu.models.tdnnf.TdnnfModel.params`, as numpy arrays), so both
     packages compute the same function.  The config is not stored in the

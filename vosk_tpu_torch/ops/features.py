@@ -165,7 +165,7 @@ _LOG_FLOOR = 1.1754944e-38  # FLT_MIN, Kaldi's log floor
 class FeatureExtractor:
     """MFCC / fbank extractor with precomputed matmul tables on `device`."""
 
-    def __init__(self, opts: MfccOptions | FbankOptions, device="cpu"):
+    def __init__(self, opts: MfccOptions | FbankOptions, device="cuda"):
         self.opts = opts
         self.device = torch.device(device)
         self.is_mfcc = isinstance(opts, MfccOptions)

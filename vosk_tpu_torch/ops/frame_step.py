@@ -1,29 +1,33 @@
-"""The v4 frame step's two kernels: expand, and the tail of select.
+"""The v4 frame step's two kernels: expand, and select.
 
 Per frame the decoder (ops/viterbi.py) runs
   * `expand_v4`: tokens -> scored candidates (cbits, nsm, pm), each
     [B, K*M]: the packed arc-row read, the acoustic lookup ll[b, pdf] and
     the order-preserving cost keys in one pass (source:
     `vosk_tpu/ops/viterbi.py` `_unpack_rows_v4` + `_expand_v4`, :833-894);
-  * three stable sorts, kept as torch ops (the source's `lax.sort` calls);
-  * `select_tail_v4`: the beam prune, the trailing-silence lookup
-    tsil[b, prev], the new frontier and the five record planes in one pass
-    (source: `_select_v4` after its sorts, :1094-1154).
+  * `select_v4`: from that unsorted pool, the dedup by next state, the
+    beam prune, the trailing-silence lookup tsil[b, prev], the new
+    frontier and the five record planes, in two launches and no sort
+    (source: the pool sort of `_frame_step_v4` :905 and `_select_v4`,
+    :1057-1155).
 Together they replace the JAX package's Pallas kernel `_pallas_gather`
 (vosk_tpu/ops/gather.py:33) at its two v4 call sites (:879 and :1105), and
-the torch ops that made its indices and consumed its output.
+the sorts and element-wise ops that made its indices and consumed its
+output.
 
 Each wrapper launches its hand-written Hopper kernel (csrc/frame_step.cu,
 built with the other csrc/ sources into one library by ops/_kernels.py) on
 CUDA tensors, and runs its plain PyTorch version on CPU tensors;
-`<wrapper>.launches` counts kernel launches.  `KERNELS` and `PLAIN` bundle
+`<wrapper>.launches` counts kernel calls.  `KERNELS` and `PLAIN` bundle
 the pairs for the decoder's `step_ops` hook.
 
 Bit parity with the JAX decoder: XLA on the CPU contracts the source's
 `(tok_cost + w) - scale * ac` into one fused multiply-add, so the cost is
 rounded once after the f32 sum.  The kernel computes that FMA; the plain
 version computes the difference exactly in float64, rounds it to odd and
-casts once (53 >= 2 * 24 + 2 bits, so the cast rounds correctly).
+casts once (53 >= 2 * 24 + 2 bits, so the cast rounds correctly).  The
+selection's sorts are stable, as `lax.sort` is; the two-key sort is one
+stable sort on the int64 key (state << 32) | (cost key + 2^31).
 """
 from __future__ import annotations
 
@@ -138,8 +142,8 @@ def _device_of(*xs) -> torch.device:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "vt_expand_v4": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "vt_select_tail_v4": [_P, _P, _P, _P, _I, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL,
-                          _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "vt_select_v4": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -196,21 +200,40 @@ expand_v4.launches = 0
 # ---------------------------------------------------------------- select
 
 
-def select_tail_v4_plain(sC_k, o2, sB_n, sB_p, lat_cb, lat_pm, frontier, valid,
-                         beam, lattice_beam, S, mbits, out):
-    """The tail of the v4 selection, after the re-rank sort.
+def select_v4_plain(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2, R, out,
+                    scratch=None):
+    """The v4 selection from the unsorted candidate pool of `expand_v4`.
 
-    sC_k [B, K2] int32: the winners' cost keys, sorted ascending; o2 [B, K2]
-    int64: the sort's order into sB_n / sB_p [B, K2] (the deduped next
-    states and pm words); lat_cb / lat_pm [B, R]: the cost-ordered prefix of
-    the candidate pool; frontier {state, cost, tsil} [B, K]; valid [B] bool.
-    Writes the five record planes into `out` ({pm, state, f_cost} [B, K],
-    {lat_pm, lat_cost} [B, R]) and returns (new frontier, out); the new
-    frontier is freshly allocated, never the old one."""
+    cbits, nsm, pm [B, E] int32 (candidate e = k*M + m); frontier {state,
+    cost, tsil} [B, K]; valid [B] bool.  The source's three stable sorts:
+    the pool by cost; its K2 cheapest by (next state, cost), whose first of
+    each state is the winner; the winners by cost.  Then the beam prune,
+    the trailing-silence update and the lattice rows (the pool's R
+    cheapest).  Writes the five record planes into `out` ({pm, state,
+    f_cost} [B, K], {lat_pm, lat_cost} [B, R]) and returns (new frontier,
+    out); the new frontier is freshly allocated, never the old one.
+    scratch is the kernel's (`SelectScratch`) and unused here."""
     tok_state, tok_cost, tok_tsil = frontier["state"], frontier["cost"], frontier["tsil"]
     B, K = tok_state.shape
-    K2 = sC_k.shape[1]
-    dev = sC_k.device
+    E = cbits.shape[1]
+    dev = cbits.device
+    K2 = min(E, K2)
+    cb, order = torch.sort(cbits, dim=1, stable=True)
+    order = order[:, :max(R, K2)]
+    nsm_s, pm_s = torch.gather(nsm, 1, order), torch.gather(pm, 1, order)
+    lat_cb, lat_pm = cb[:, :R], pm_s[:, :R]
+    if E < R:
+        lat_cb = torch.nn.functional.pad(lat_cb, (0, R - E), value=BIG_I32)
+        lat_pm = torch.nn.functional.pad(lat_pm, (0, R - E), value=-1)
+    # dedup by next state on the K2 cheapest: one stable sort on the int64
+    # key (state << 32) | (cost key + 2^31), then the winners by cost
+    c2, n2, p2 = cb[:, :K2], nsm_s[:, :K2], pm_s[:, :K2]
+    _, o = torch.sort((n2.long() << 32) | (c2.long() + 2**31), dim=1, stable=True)
+    sB_n, sB_c, sB_p = torch.gather(n2, 1, o), torch.gather(c2, 1, o), torch.gather(p2, 1, o)
+    first = torch.ones_like(sB_n, dtype=torch.bool)
+    first[:, 1:] = sB_n[:, 1:] != sB_n[:, :-1]
+    alive = first & (sB_n != S) & (sB_c < BIG_I32)
+    sC_k, o2 = torch.sort(torch.where(alive, sB_c, BIG_I32), dim=1, stable=True)
     sC_n, sC_p = torch.gather(sB_n, 1, o2), torch.gather(sB_p, 1, o2)
     if K2 < K:
         pad = K - K2
@@ -236,7 +259,6 @@ def select_tail_v4_plain(sC_k, o2, sB_n, sB_p, lat_cb, lat_pm, frontier, valid,
         "cost": torch.where(vb, new_cost, tok_cost),
         "tsil": torch.where(vb, new_tsil, tok_tsil),
     }
-    R = lat_cb.shape[1]
     slot = torch.arange(max(K, R), dtype=torch.int32, device=dev)
     ident_pm = torch.where(slot < K, PM_IDENT_FLAG | (slot << mbits), -1)[None, :]
     torch.where(vb, torch.where(keep, pm_k & PM_MASK, -1), ident_pm[:, :K], out=out["pm"])
@@ -257,72 +279,112 @@ def select_tail_v4_plain(sC_k, o2, sB_n, sB_p, lat_cb, lat_pm, frontier, valid,
     return new_frontier, out
 
 
-def select_tail_v4(sC_k, o2, sB_n, sB_p, lat_cb, lat_pm, frontier, valid,
-                   beam, lattice_beam, S, mbits, out):
-    """`select_tail_v4_plain` as one kernel launch on CUDA tensors (the
-    plain version on CPU tensors).  The record planes in `out` may be views
-    of [T, B, K|R] buffers at frame t (rows contiguous); valid may be a
-    column of a [B, T] mask.  `select_tail_v4.launches` counts launches."""
+# csrc/frame_step.cu: pass 2 ranks up to SELECT_SHARED_CAP candidates per
+# channel in shared memory, more in global scratch
+SELECT_SHARED_CAP = 16384
+
+
+def _sort_size(n: int) -> int:
+    """The kernel's bitonic sort size for n keys: a power of two, >= 256."""
+    return max(256, 1 << (n - 1).bit_length())
+
+
+class SelectScratch:
+    """select_v4's device scratch, kept by its caller (a decoder holds one
+    and frees it with itself).  Per (device, stream), since calls on one
+    stream run in order: pass 1's per-channel best key and list count
+    (pass 2 resets them to BIG and 0 after reading them, so they are set
+    only when allocated), its candidate lists [B * E], and, where more than
+    SELECT_SHARED_CAP candidates are ranked, pass 2's sort keys, ranks and
+    winners.  Each buffer grows to the largest call seen."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+
+    def buffers(self, dev, stream, B: int, E: int, K2: int, R: int) -> dict:
+        bufs = self._bufs.setdefault((dev, stream), {})
+        K2e = min(K2, E)
+        N = max(R, K2e)
+        glob = N > SELECT_SHARED_CAP
+        need = {"best": B, "count": B, "list": B * E,
+                "x": B * _sort_size(N) if glob else 0, "y": B * N if glob else 0,
+                "w": B * _sort_size(K2e) if glob else 0}
+        for name, n in need.items():
+            have = bufs.get(name)
+            if n and (have is None or have.numel() < n):
+                if name == "best":
+                    bufs[name] = torch.full((n,), BIG_I32, dtype=torch.int32, device=dev)
+                elif name == "count":
+                    bufs[name] = torch.zeros(n, dtype=torch.int32, device=dev)
+                else:
+                    dt = torch.int32 if name == "y" else torch.int64
+                    bufs[name] = torch.empty(n, dtype=dt, device=dev)
+        return {k: bufs[k] if n else None for k, n in need.items()}
+
+
+def select_v4(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2, R, out,
+              scratch=None):
+    """`select_v4_plain` as the kernel select_v4 (two launches, no sort) on
+    CUDA tensors; the plain version on CPU tensors.  The pool must be as
+    `expand_v4` writes it: a candidate keyed below BIG has a next state
+    below S.  The record planes in `out` may be views of [T, B, K|R]
+    buffers at frame t (rows contiguous); valid may be a column of a [B, T]
+    mask.  scratch: a `SelectScratch` kept across calls (a fresh one per
+    call when None).  `select_v4.launches` counts kernel calls."""
     tok_state, tok_cost, tok_tsil = frontier["state"], frontier["cost"], frontier["tsil"]
     _check_2d("frontier state", tok_state, torch.int32)
     B, K = tok_state.shape
     _check_2d("frontier cost", tok_cost, torch.float32, B, K)
     _check_2d("frontier tsil", tok_tsil, torch.int32, B, K)
-    _check_2d("sC_k", sC_k, torch.int32, B)
-    K2 = sC_k.shape[1]
-    _check_2d("o2", o2, torch.int64, B, K2)
-    _check_2d("sB_n", sB_n, torch.int32, B, K2)
-    _check_2d("sB_p", sB_p, torch.int32, B, K2)
-    _check_2d("lat_cb", lat_cb, torch.int32, B)
-    R = lat_cb.shape[1]
-    _check_2d("lat_pm", lat_pm, torch.int32, B, R)
+    _check_2d("cbits", cbits, torch.int32, B)
+    E = cbits.shape[1]
+    _check_2d("nsm", nsm, torch.int32, B, E)
+    _check_2d("pm", pm, torch.int32, B, E)
     for k, dt, n in (("pm", torch.int32, K), ("state", torch.int32, K),
                      ("f_cost", torch.float32, K), ("lat_pm", torch.int32, R),
                      ("lat_cost", torch.float32, R)):
         _check_2d(f"out[{k}]", out[k], dt, B, n)
-    if valid.dtype != torch.bool or valid.shape != (B,):
-        raise TypeError(f"valid must be a [B] bool tensor; got {valid.dtype} "
-                        f"{tuple(valid.shape)}")
-    dev = _device_of(tok_state, tok_cost, tok_tsil, sC_k, o2, sB_n, sB_p, lat_cb,
-                     lat_pm, valid, *(out[k] for k in RECORD_PLANES))
-    args = (sC_k, o2, sB_n, sB_p, lat_cb, lat_pm, frontier, valid, beam,
-            lattice_beam, S, mbits, out)
+    if not isinstance(valid, torch.Tensor) or valid.dtype != torch.bool or valid.shape != (B,):
+        raise TypeError(f"valid must be a [B] bool tensor; got {getattr(valid, 'dtype', valid)} "
+                        f"{tuple(getattr(valid, 'shape', ()))}")
+    dev = _device_of(cbits, nsm, pm, tok_state, tok_cost, tok_tsil, valid,
+                     *(out[k] for k in RECORD_PLANES))
+    args = (cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2, R, out)
     if dev.type == "cpu":
-        return select_tail_v4_plain(*args)
-    dense = (tok_state, tok_cost, tok_tsil, sC_k, o2, sB_n, sB_p,
-             *(out[k] for k in RECORD_PLANES))
+        return select_v4_plain(*args)
+    dense = (cbits, nsm, pm, tok_state, tok_cost, tok_tsil, *(out[k] for k in RECORD_PLANES))
     if not all(x.is_contiguous() for x in dense):
-        raise ValueError("select_tail_v4 needs contiguous frontier, sort outputs and "
-                         "record rows")
-    if B > 65535 or max(K, R) >= 2**31 - 256:
-        raise ValueError(f"select_tail_v4 shape out of range: B={B} K={K} R={R}")
+        raise ValueError("select_v4 needs a contiguous pool, frontier and record rows")
+    if B > 65535 or E >= 2**31 or K2 < 1 or R < 1:
+        raise ValueError(f"select_v4 shape out of range: B={B} E={E} R={R} K2={K2}")
     new = {k: torch.empty_like(v) for k, v in frontier.items()}
-    if B == 0 or max(K, R) == 0:
+    if B == 0 or E == 0:
         return new, out
     stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = (scratch if scratch is not None else SelectScratch()).buffers(dev, stream, B, E, K2, R)
+    ptr = {k: None if v is None else v.data_ptr() for k, v in buf.items()}
     with torch.cuda.device(dev):
-        err = _kernel("vt_select_tail_v4")(
-            sC_k.data_ptr(), o2.data_ptr(), sB_n.data_ptr(), sB_p.data_ptr(), K2,
-            lat_cb.data_ptr(), lat_cb.stride(0), lat_pm.data_ptr(), lat_pm.stride(0),
-            tok_state.data_ptr(), tok_cost.data_ptr(), tok_tsil.data_ptr(),
-            valid.data_ptr(), valid.stride(0),
-            float(beam), float(lattice_beam), B, K, R, S, mbits,
-            new["state"].data_ptr(), new["cost"].data_ptr(), new["tsil"].data_ptr(),
-            *(out[k].data_ptr() for k in RECORD_PLANES), stream)
-    _launched("select_tail_v4", err)
-    select_tail_v4.launches += 1
+        err = _kernel("vt_select_v4")(
+            cbits.data_ptr(), nsm.data_ptr(), pm.data_ptr(), E, tok_state.data_ptr(),
+            tok_cost.data_ptr(), tok_tsil.data_ptr(), valid.data_ptr(), valid.stride(0),
+            float(beam), float(lattice_beam), B, K, K2, R, S, mbits, ptr["best"],
+            ptr["count"], ptr["list"], new["state"].data_ptr(), new["cost"].data_ptr(),
+            new["tsil"].data_ptr(), *(out[k].data_ptr() for k in RECORD_PLANES), ptr["x"],
+            ptr["y"], ptr["w"], stream)
+    _launched("select_v4", err)
+    select_v4.launches += 1
     return new, out
 
 
-select_tail_v4.launches = 0
+select_v4.launches = 0
 
 
 class StepOps(NamedTuple):
     """The pair the decoder's frame step calls (`BatchViterbi.step_ops`)."""
 
     expand: object
-    select_tail: object
+    select: object
 
 
-KERNELS = StepOps(expand_v4, select_tail_v4)
-PLAIN = StepOps(expand_v4_plain, select_tail_v4_plain)
+KERNELS = StepOps(expand_v4, select_v4)
+PLAIN = StepOps(expand_v4_plain, select_v4_plain)

@@ -57,7 +57,7 @@ class OnlineIvectorExtractor:
     """
 
     def __init__(self, cfg: IvectorDirConfig, chunk_frames: int = 32,
-                 ring: int = 64, device="cpu"):
+                 ring: int = 64, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         g = cfg.dubm

@@ -11,22 +11,22 @@ Per frame, for each channel:
     reads its packed arc row [2M] int32 (f16(w) << 16 | sil << 14 | pdf,
     then next state), looks up the acoustic score ll[b, pdf] and scores
     E = K*M candidates with order-preserving int32 cost keys;
-  * select: one stable sort by cost, dedup by next state among the K2
-    cheapest (stable sort by (state, cost)) and a stable re-rank of the
-    winners, all torch sorts; then the kernel `select_tail_v4`: the beam
-    prune, the trailing-silence update, the new frontier, and the record
-    rows (lattice rows from the R cheapest) written in place.
+  * select (kernel `select_v4`, ops/frame_step.py): from the unsorted
+    pool, dedup by next state among the K2 cheapest, the winners ranked by
+    cost, the beam prune, the trailing-silence update, the new frontier,
+    and the record rows (lattice rows from the R cheapest) written in
+    place; the source's three stable sorts, computed without sorting the
+    pool.
 Records keep the [T, B, ...] layout of the source's scan.  `step_ops`
-holds the two kernels' wrappers (`frame_step.KERNELS`); setting it to
-`frame_step.PLAIN` runs their plain versions on the same tensors.
+holds the two kernels' wrappers (`frame_step.KERNELS`, the pair
+(expand, select)); setting it to `frame_step.PLAIN` runs their plain
+versions on the same tensors.
 
-Bit-parity notes: the three sorts are stable, as `lax.sort` is; the
-two-key sort is one stable sort on the int64 key (state << 32) | (cost key
-+ 2^31); shifts that the source makes logical are taken after a mask; the
-f16 weight is read from the top half-word without a saturating cast; cost
-keys rely on int32 wraparound, which torch's int32 arithmetic keeps; the
-candidate cost is rounded once after the f32 sum, as XLA's fused
-multiply-add rounds it at any acoustic scale (ops/frame_step.py).
+Bit-parity notes: shifts that the source makes logical are taken after a
+mask; the f16 weight is read from the top half-word without a saturating
+cast; cost keys rely on int32 wraparound, which torch's int32 arithmetic
+keeps; the candidate cost is rounded once after the f32 sum, as XLA's
+fused multiply-add rounds it at any acoustic scale (ops/frame_step.py).
 
 The JAX package's ragged bucket ladder (`_frame_step_v4_ragged`) is not
 ported: it is bit-equal to the full-K step (tests/test_viterbi_v4.py).
@@ -53,7 +53,7 @@ import torch
 from ..graph.fst import EPSILON, DecodingGraph
 from ..graph.lattice import to_host
 from .frame_step import (
-    BIG_I32, INF, KERNELS, PM_IDENT_FLAG, PM_MASK, SPEECH_BIT, TSIL_MASK,
+    INF, KERNELS, PM_IDENT_FLAG, PM_MASK, SPEECH_BIT, TSIL_MASK, SelectScratch,
 )
 # padded layout for any out-degree whose [S+1, M] table has at most 2^26
 # slots (after prepare_graph_v4 with M=4 the degree is 4 or 8 on most
@@ -80,10 +80,6 @@ def split_tsil(ts: np.ndarray):
     return ts & TSIL_MASK, (ts & SPEECH_BIT) != 0
 
 
-def _take(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, order)
-
-
 class BatchViterbi:
     """Channel-batched streaming Viterbi over one decoding graph (v4 step,
     packed16 arc rows), with its tables on `device`."""
@@ -94,7 +90,7 @@ class BatchViterbi:
         params: DecodeParams,
         silence_pdfs=None,
         optimize_graph: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if optimize_graph:
             from ..graph.arrayopt import prepare_graph_v4
@@ -136,6 +132,7 @@ class BatchViterbi:
         # the frame step's kernels; chip_smoke.py and the card tests swap in
         # frame_step.PLAIN to compare the two on the same CUDA tensors
         self.step_ops = KERNELS
+        self._select_scratch = SelectScratch()
         # recognizers of one model share this decoder: one chunk at a time
         # (the source serialises decode_chunk the same way)
         self._dispatch_lock = threading.RLock()
@@ -228,6 +225,7 @@ class BatchViterbi:
         for k in ("em_pack", "_final_cost_t"):
             setattr(c, k, getattr(self, k).to(c.device))
         c._dispatch_lock = threading.RLock()
+        c._select_scratch = SelectScratch()
         return c
 
     def init_frontier(self, batch: int) -> dict:
@@ -241,56 +239,17 @@ class BatchViterbi:
 
     # ------------------------------------------------------------- v4 step
 
-    def _expand_v4(self, tok_state, tok_cost, ll):
-        """Tokens -> scored candidates (cbits, nsm, pm), each [B, K*M]."""
-        return self.step_ops.expand(self.em_pack, tok_state, tok_cost, ll,
-                                    self.params.acoustic_scale, self.S, self.M, self.mbits)
-
-    def _pool_v4(self, frontier, ll):
-        """The cost-ordered candidate pool (cb, nsm, pm) of one frame: cb
-        [B, E]; nsm and pm keep only the max(R, K2) cheapest, all that
-        select reads."""
-        cbits, nsm, pm = self._expand_v4(frontier["state"], frontier["cost"], ll)
-        cb, order = torch.sort(cbits, dim=1, stable=True)
-        order = order[:, :max(self.R, min(cb.shape[1], self.K2))]
-        return cb, _take(nsm, order), _take(pm, order)
-
-    def _frame_step_v4(self, frontier, ll, valid, out=None):
-        """One whole-batch frame step.  ll: [B, P] (rows may be strided);
-        valid: [B] bool.  Returns (frontier, records {pm, state, f_cost}
-        [B, K] and {lat_pm, lat_cost} [B, R]), the records written into
-        `out` when given."""
-        return self._select_v4(frontier, self._pool_v4(frontier, ll), valid, out)
-
-    def _rank_v4(self, sA):
-        """The selection's sorts over the cost-ordered pool sA = (cb, nsm,
-        pm), each [B, E] (nsm and pm may stop after max(R, K2) columns):
-        dedup by next state on the cheapest K2 (stable sort by (state,
-        cost) as one int64 key), then the winners re-ranked by cost.
-        Returns the tail's inputs (sC_k, o2, sB_n, sB_p, lat_cb, lat_pm)."""
-        cb, nsm, pm = sA
-        K2 = min(cb.shape[1], self.K2)
-        c2, n2, p2 = cb[:, :K2], nsm[:, :K2], pm[:, :K2]
-        key2 = (n2.long() << 32) | (c2.long() + 2**31)
-        _, o = torch.sort(key2, dim=1, stable=True)
-        sB_n, sB_c, sB_p = _take(n2, o), _take(c2, o), _take(p2, o)
-        first = torch.ones_like(sB_n, dtype=torch.bool)
-        first[:, 1:] = sB_n[:, 1:] != sB_n[:, :-1]
-        alive = first & (sB_n != self.S) & (sB_c < BIG_I32)
-        key = torch.where(alive, sB_c, BIG_I32)
-        sC_k, o2 = torch.sort(key, dim=1, stable=True)
-        # R <= E by construction: the lattice rows are the pool's R cheapest
-        return sC_k, o2, sB_n, sB_p, cb[:, :self.R], pm[:, :self.R]
-
-    def _select_v4(self, frontier, sA, valid, out=None):
-        """Selection from the cost-ordered candidate pool sA (see
-        `_rank_v4`): the sorts, then the tail kernel, which writes the
-        records into `out` ({name: [B, K|R]}, allocated when None)."""
-        if out is None:
-            out = self.record_buffers((sA[0].shape[0],), sA[0].device)
-        return self.step_ops.select_tail(
-            *self._rank_v4(sA), frontier, valid, self.params.beam,
-            self.params.lattice_beam, self.S, self.mbits, out)
+    def _frame_step_v4(self, frontier, ll, valid, out):
+        """One whole-batch frame step: expand, then select.  ll: [B, P]
+        (rows may be strided); valid: [B] bool.  Returns (frontier, records
+        {pm, state, f_cost} [B, K] and {lat_pm, lat_cost} [B, R]), the
+        records written into `out` ({name: [B, K|R]})."""
+        cbits, nsm, pm = self.step_ops.expand(
+            self.em_pack, frontier["state"], frontier["cost"], ll,
+            self.params.acoustic_scale, self.S, self.M, self.mbits)
+        return self.step_ops.select(
+            cbits, nsm, pm, frontier, valid, self.params.beam, self.params.lattice_beam,
+            self.S, self.mbits, self.K2, self.R, out, scratch=self._select_scratch)
 
     # ------------------------------------------------------------- chunk API
 

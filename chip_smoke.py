@@ -72,7 +72,20 @@ and prints no result line):
      its shapes, one 3 s stream on the main graph and one with the runtime
      grammar '["w1 w2", "w3"]', whose words must lie in the grammar; both
      frame-step kernels must launch in both; then both against their plain
-     versions on a real frame of each graph (M = 266; K = 124), with times.
+     versions on a real frame of each graph (M = 266; K = 124), with times;
+ 11. (run between 8 and 9, on the model of phase 4) the v3 step, for graphs
+     that keep epsilon arcs: FusedPipeline(frame_step="v3") over the raw
+     2M-state graph (eps rounds of depth 2); (a) two chunks of plausible
+     scores at B = 32 through its decoder with the gather kernel, with the
+     plain gather on the same CUDA tensors and on the CPU, all bit-equal,
+     and one of them profiled (the sort kernels' device time a frame);
+     (b) run_scan at phase 8's point, counts zeroed just before: 2 + 2 x 2
+     = 6 gather launches a decoded frame and no v4 kernel; (c) a native
+     directory of the same AM whose graph has a seeded 30 % of its eps arcs
+     labeled with words: Model + KaldiRecognizer must pick v3 under
+     "auto", stream 10.5 s (it folds) with identical JSON under the plain
+     gather, then BatchModel serves 8 x 3 s; (d) the gather kernel at the
+     four v3 shapes.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -145,17 +158,27 @@ def zero_counts():
     expand_v4.launches = select_v4.launches = gather_rows.launches = 0
 
 
-def read_counts(what):
-    """{kernel: launches} since zero_counts(); raises unless both
-    frame-step kernels launched."""
+V4_KERNELS = ("expand_v4", "select_v4")  # the v4 step's kernels
+V3_KERNELS = ("gather_rows",)             # the v3 step's kernel
+
+
+def read_counts(what, need=V4_KERNELS):
+    """{kernel: launches} since zero_counts(); raises unless every kernel
+    in `need` (the path's step) launched and no other step's kernel did."""
     from vosk_tpu_torch.ops.frame_step import expand_v4, select_v4
     from vosk_tpu_torch.ops.gather import gather_rows
 
     counts = {"expand_v4": expand_v4.launches, "select_v4": select_v4.launches,
               "gather_rows": gather_rows.launches}
-    if counts["expand_v4"] <= 0 or counts["select_v4"] <= 0:
-        raise AssertionError(f"{what} did not launch both frame-step kernels: {counts}")
+    other = V3_KERNELS if need == V4_KERNELS else V4_KERNELS
+    if any(counts[k] <= 0 for k in need) or any(counts[k] for k in other):
+        raise AssertionError(f"{what} did not launch exactly the kernels {need}: {counts}")
     return counts
+
+
+def on_device(records) -> bool:
+    """Every plane of one chunk's decoder records is a CUDA tensor."""
+    return all(v.is_cuda for v in records.values())
 
 
 def count_line(counts) -> str:
@@ -503,7 +526,7 @@ def real_frame(torch, dec, P, seed, frames=6):
     return fr, ll, torch.ones(1, dtype=torch.bool, device=dec.device)
 
 
-def phase_serving(torch, bm):
+def phase_serving(torch, bm, need=V4_KERNELS):
     import numpy as np
 
     import vosk_tpu_torch
@@ -531,7 +554,7 @@ def phase_serving(torch, bm):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         ch = recs[0]._channel
-        on_card = on_card or bool(p._records[ch] and p._records[ch][-1]["pm"].is_cuda
+        on_card = on_card or bool(p._records[ch] and on_device(p._records[ch][-1])
                                   and p._frontier["state"].is_cuda)
     results = []
     for r in recs:
@@ -543,7 +566,7 @@ def phase_serving(torch, bm):
             results.append(json.loads(out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = read_counts("the serving path")
+    launches = read_counts("the serving path", need)
     if not on_card:
         raise AssertionError("frontier/records were not CUDA tensors")
     if len(results) < N_REQUESTS or not all(isinstance(x.get("text"), str) for x in results):
@@ -610,7 +633,7 @@ def stream_long(model, pcm, rate):
         if first_fold_s is None and r.metrics.count.get("fold"):
             first_fold_s = r.metrics.total_s["fold"]
         if r._records:
-            on_card = on_card and r._frontier["state"].is_cuda and r._records[-1]["pm"].is_cuda
+            on_card = on_card and r._frontier["state"].is_cuda and on_device(r._records[-1])
         if i % 5 == 4:
             t0 = time.perf_counter()
             outs.append(check_schema(rec.PartialResult(), "partial"))
@@ -690,15 +713,15 @@ def phase_streaming(torch, path):
     return launches
 
 
-def phase_run_scan(torch, bm):
-    """bench.py's path at its operating point, B = 32."""
+def bench_inputs(torch, pipe):
+    """bench.py's drive at its operating point for `pipe`: 4 s a channel in
+    n chunks of seeded noise [n, B, S] and plausible scores (snr 2.0) as
+    ll_bias [n, B, T, P], on the card.  Returns (n, audio, ll_bias)."""
     import numpy as np
 
-    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
     from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
 
-    model = bm._model
-    pipe = FusedPipeline(model, batch=B, chunk_seconds=0.48)
+    model = pipe.model
     S, P = pipe.chunk_samples, model.am_config.num_pdfs
     n_chunks = int(4.0 * model.config.sample_rate) // S
     rng = np.random.default_rng(SEED)
@@ -707,7 +730,17 @@ def phase_run_scan(torch, bm):
     lb = make_plausible_loglikes(model.graph, P, B, n_chunks * pipe.T, snr=2.0, seed=SEED)
     ll_bias = torch.from_numpy(np.ascontiguousarray(
         lb.reshape(n_chunks, pipe.T, B, P).swapaxes(1, 2))).to(pipe.device)
-    del lb
+    return n_chunks, audio, ll_bias
+
+
+def phase_run_scan(torch, bm):
+    """bench.py's path at its operating point, B = 32."""
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    model = bm._model
+    pipe = FusedPipeline(model, batch=B, chunk_seconds=0.48)
+    S = pipe.chunk_samples
+    n_chunks, audio, ll_bias = bench_inputs(torch, pipe)
     st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)  # warm-up
     torch.cuda.synchronize()
     del recs, best, st
@@ -734,6 +767,243 @@ def phase_run_scan(torch, bm):
 
 def stage_line(stages) -> str:
     return json.dumps({k: v["seconds"] for k, v in stages.items()})
+
+
+def v3_records_equal(torch, a, b, what):
+    """Raise unless two runs' outputs (frontier, records, best) are bit-equal."""
+    for x, y in zip(a, b):
+        for k in x:
+            if not torch.equal(bits(torch, x[k]), bits(torch, y[k])):
+                raise AssertionError(f"v3 decoder {k}: kernel != {what}")
+
+
+def phase_v3_decoder(torch, pipe):
+    """11a. The v3 decoder over the raw graph at B = 32: two chunks of
+    plausible scores with a masked stretch, with the gather kernel, with
+    its plain version on the same CUDA tensors, and on the CPU; frontier,
+    the nine record planes and the best costs must be bit-equal, with
+    2 + 2 * eps_iters gather launches a frame."""
+    import numpy as np
+
+    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
+
+    dec, T = pipe.dec, pipe.T
+    P = pipe.model.am_config.num_pdfs
+    lb = make_plausible_loglikes(pipe.model.graph, P, B, 2 * T, snr=2.0, seed=SEED + 12)
+    chunks = [torch.from_numpy(np.ascontiguousarray(lb[c * T:(c + 1) * T].swapaxes(0, 1)))
+              for c in range(2)]
+    valid = torch.ones((B, T), dtype=torch.bool)
+    valid[1, 2:4] = False
+
+    def run(d, gather, device):
+        d.gather_op = gather
+        fr, outs, secs = d.init_frontier(B), [], []
+        for ll in chunks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fr, rec, best, bestf = d.decode_chunk(fr, ll.to(device), valid.to(device))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append({**{f"frontier.{k}": v.cpu() for k, v in fr.items()},
+                         **{k: v.cpu() for k, v in rec.items()},
+                         "best": best.cpu(), "best_final": bestf.cpu()})
+        return outs, secs
+
+    zero_counts()
+    try:
+        k_out, k_t = run(dec, gather_rows, dec.device)
+        launches = read_counts("the v3 decoder", V3_KERNELS)
+        p_out, p_t = run(dec, gather_rows_plain, dec.device)
+    finally:
+        dec.gather_op = gather_rows
+    c_out, c_t = run(dec.to("cpu"), gather_rows, "cpu")
+    v3_records_equal(torch, k_out, p_out, "plain gather")
+    v3_records_equal(torch, k_out, c_out, "CPU")
+    per_frame = 2 + 2 * dec.eps_iters
+    if launches["gather_rows"] != 2 * T * per_frame:
+        raise AssertionError(f"v3 decoder: {launches['gather_rows']} gather launches in "
+                             f"{2 * T} frames, not {per_frame} a frame")
+    live = torch.isfinite(k_out[-1]["frontier.cost"]).sum(1)
+    log(f"v3 decoder B={B} K={dec.K} R={dec.R} M={dec.M} Me={dec.Me} Eb={dec.Eb} L="
+        f"{1 + dec.eps_iters} T={T}x2: frontier + 9 record planes + best costs bit-equal "
+        f"gather kernel / plain gather / CPU; live tokens min {live.min().item()} max "
+        f"{live.max().item()}; {launches['gather_rows'] // (2 * T)} gather launches a frame; "
+        f"chunk seconds kernel {[round(x, 4) for x in k_t]} plain "
+        f"{[round(x, 4) for x in p_t]} CPU {[round(x, 3) for x in c_t]}")
+    return chunks, valid
+
+
+def phase_v3_profile(torch, dec, chunks, valid):
+    """One v3 decode_chunk at B = 32 under torch.profiler: device kernels
+    by name, launches and device us per frame; the sort kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T = chunks[0].shape[1]
+    fr = dec.init_frontier(B)
+    ll, v = chunks[0].to(dec.device), valid.to(dec.device)
+    dec.decode_chunk(fr, ll, v)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dec.decode_chunk(fr, ll, v)
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            c, us = rows.get(ev.name, (0, 0.0))
+            rows[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
+    if not rows:
+        raise AssertionError("the profiler recorded no device kernel")
+    total = sum(us for _, us in rows.values()) / T
+    sort_us = sum(us for k, (_, us) in rows.items() if "sort" in k.lower()) / T
+    gather = {k: c / T for k, (c, _) in rows.items() if "gather_rows" in k}
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:12]
+    log(f"profiled v3 decode_chunk B={B} T={T}: {sum(c for c, _ in rows.values()) / T:.1f} "
+        f"device events and {total:.3f} us of device rows a frame; sort kernels "
+        f"{sort_us:.3f} us a frame ({sort_us / total:.1%}); gather_rows launches a frame "
+        f"{json.dumps(gather)}; largest rows (launches, us a frame): " + json.dumps(
+            {k[:60]: [c / T, round(us / T, 3)] for k, (c, us) in top}))
+    if sum(gather.values()) != 2 + 2 * dec.eps_iters:
+        raise AssertionError(f"profiled v3 frame launched gather {gather}")
+    return {"device_us": total, "sort_us": sort_us}
+
+
+def phase_v3_run_scan(torch, pipe):
+    """11b. FusedPipeline(frame_step="v3").run_scan at bench.py's point:
+    one warm-up, then a timed drive with the counts zeroed just before."""
+    dec = pipe.dec
+    model = pipe.model
+    n_chunks, audio, ll_bias = bench_inputs(torch, pipe)
+    st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)  # warm-up
+    torch.cuda.synchronize()
+    del recs, best, st
+    state = pipe.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # every kernel count, just before the path
+    t0 = time.perf_counter()
+    state, recs, best = pipe.run_scan(state, audio, ll_bias=ll_bias)
+    best_h = best.cpu()
+    dt = time.perf_counter() - t0
+    launches = read_counts("the v3 run_scan", V3_KERNELS)
+    frames = n_chunks * pipe.T
+    if launches["gather_rows"] != frames * (2 + 2 * dec.eps_iters):
+        raise AssertionError(f"v3 run_scan: {launches['gather_rows']} gather launches in "
+                             f"{frames} frames")
+    if not torch.isfinite(best_h).all() or not on_device(recs):
+        raise AssertionError(f"v3 run_scan: best costs not finite or records off the card")
+    live = torch.isfinite(recs["f_cost"][:, :, :, -1]).sum(-1).float()
+    audio_s = n_chunks * B * pipe.chunk_samples / model.config.sample_rate
+    log(f"v3 run_scan B={B}, {n_chunks} chunks of 0.48 s ({pipe.T} frames each), records "
+        f"{tuple(recs['prev'].shape)} / {tuple(recs['lat_ns'].shape)}: {dt:.3f} s for "
+        f"{audio_s:.2f} audio-s = {audio_s / dt:.3f} audio-s/s, {dt / frames * 1e3:.3f} ms "
+        f"per decoded frame; live tokens p50 {live.median().item():.0f} (min "
+        f"{live.min().item():.0f}, max {live.max().item():.0f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {count_line(launches)} = "
+        f"{launches['gather_rows'] // frames} a decoded frame")
+    return launches
+
+
+def phase_v3_auto(torch, bm, tmp):
+    """11c. A native directory of the same AM whose graph keeps labeled eps
+    arcs (the 2M-state graph, a seeded 30 % of its eps arcs given word
+    labels): Model(dir) + KaldiRecognizer must pick v3 under "auto"; the
+    10.5 s stream must fold, keep the source's schema, launch only the
+    gather kernel and give identical JSON with the plain gather; then
+    BatchModel(dir) serves 8 x 3 s.  Returns (streaming, batch) launches."""
+    import dataclasses
+
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    m = bm._model
+    g = m.graph
+    rng = np.random.default_rng(SEED + 13)
+    ol = g.eps_olabel.copy()
+    hit = rng.random(len(ol)) < 0.3
+    ol[hit] = rng.integers(1, int(g.em_olabel.max()) + 1, int(hit.sum()))
+    path = Path(tmp) / "eps_model"
+    t0 = time.perf_counter()
+    native.save_model(path, m.config, m.am_params,
+                      dataclasses.replace(g, eps_olabel=ol.astype(np.int32)), m.words,
+                      m.phones, m.phone_of_pdf, m.silence_pdfs)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(path), device="cuda")
+    vosk_tpu_torch.KaldiRecognizer(model, 16000)  # builds the shared decoder
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    dec = model._model.shared_decoder()
+    if dec.frame_step != "v3":
+        raise AssertionError(f"the labeled-eps model took the {dec.frame_step} step")
+    pcm = noise_pcm(10.5, 16000, SEED + 14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # every kernel count, just before the path
+    outs, t = stream_long(model, pcm, 16000)
+    torch.cuda.synchronize()
+    launches = read_counts("the labeled-eps stream", V3_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dec.gather_op = gather_rows_plain
+    try:
+        plain_outs, _ = stream_long(model, pcm, 16000)
+    finally:
+        dec.gather_op = gather_rows
+    if plain_outs != outs:
+        raise AssertionError("the labeled-eps stream differs between the gather kernel and "
+                             "its plain version")
+    a = t["accept"]
+    log(f"v3 auto: labeled-eps dir ({int(hit.sum())} of {len(ol)} eps arcs labeled) saved "
+        f"in {t_save:.3f} s; Model + first KaldiRecognizer {t_load:.3f} s; prepared graph "
+        f"S={dec.S} M={dec.M} Me={dec.Me} eps arcs {dec.graph.num_eps_arcs} eps_iters "
+        f"{dec.eps_iters}: frame_step {dec.frame_step}; 10.5 s stream AcceptWaveform p50 "
+        f"{np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms; first fold "
+        f"{t['first_fold'] * 1e3:.3f} ms ({t['folded']} frames folded); FinalResult "
+        f"{t['final'] * 1e3:.3f} ms; peak device memory {peak:.3f} GiB; "
+        f"{count_line(launches)}; identical JSON with the plain gather ({len(outs)} results); "
+        f"text {json.dumps(json.loads(outs[-1])['text'][:40])}")
+    log("v3 auto streaming stages (host s): " + stage_line(t["stages"]))
+    del model, dec, t
+    gc.collect()
+    t0 = time.perf_counter()
+    bm_e = vosk_tpu_torch.BatchModel(str(path), max_batch_size=B, device="cuda")
+    torch.cuda.synchronize()
+    log(f"v3 auto batch: BatchModel load {time.perf_counter() - t0:.3f} s, frame_step "
+        f"{bm_e._pipeline.dec.frame_step}")
+    batch_launches = phase_serving(torch, bm_e, V3_KERNELS)
+    del bm_e
+    gc.collect()
+    return launches, batch_launches
+
+
+def phase_v3(torch, bm, tmp):
+    """Phase 11: the v3 step (epsilon-closure rounds over exact3 rows) with
+    the gather kernel at its four sites.  Returns (launches by path, gather
+    times at the v3 shapes, profile)."""
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    t0 = time.perf_counter()
+    pipe = FusedPipeline(bm._model, batch=B, chunk_seconds=0.48, frame_step="v3")
+    dec = pipe.dec
+    log(f"v3: raw graph S={dec.S}, M={dec.M}, Me={dec.Me}, eps_iters={dec.eps_iters}, "
+        f"pdf_bits={dec.pdf_bits}, olabel in meta {dec.ol_in_meta}, K={dec.K}, R={dec.R}, "
+        f"K2={dec.K2}, Eb={dec.Eb}; FusedPipeline(frame_step='v3') built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    chunks, valid = phase_v3_decoder(torch, pipe)
+    profile = phase_v3_profile(torch, dec, chunks, valid)
+    launches = {"v3": phase_v3_run_scan(torch, pipe)}
+    shapes = (("v3_ll", "float32", B, pipe.model.am_config.num_pdfs, dec.K * dec.M),
+              ("v3_tsil", "int32", B, dec.K, dec.K),
+              ("v3_state", "int32", B, dec.K, dec.Eb),
+              ("v3_eps_tsil", "int32", B, dec.K, dec.K))
+    del pipe, dec, chunks
+    gc.collect()
+    launches["v3_auto"], launches["v3_auto_batch"] = phase_v3_auto(torch, bm, tmp)
+    times, err = phase_kernel(torch, torch.device("cuda"), cases=shapes)
+    return launches, times, err, profile
 
 
 def phase_kaldi(torch, tmp):
@@ -948,6 +1218,8 @@ def main() -> int:
         max_err = max(max_err, b1_err)
         launches_streaming = phase_streaming(torch, Path(tmp) / "bench_model")
         launches_run_scan = phase_run_scan(torch, bm)
+        launches_v3, v3_times, v3_err, v3_profile = phase_v3(torch, bm, tmp)
+        max_err = max(max_err, v3_err)
         del bm
         launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi) = phase_kaldi(torch, tmp)
         kaldi_times, kaldi_err = phase_kernel(torch, dev, cases=(
@@ -967,14 +1239,18 @@ def main() -> int:
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
              "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
-             "split": launches_split, "grammar": launches_grammar}
-    gather_times = {**b1, **kaldi_times, **split_times}
+             "split": launches_split, "grammar": launches_grammar, **launches_v3}
+    gather_times = {**b1, **kaldi_times, **split_times, **v3_times}
     kernels = [{
         "name": "gather_rows",
         "route": "cuda",
         "source": "vosk_tpu_torch/csrc/gather.cu",
         "replaces": "vosk_tpu/ops/gather.py:33",
-        "launches": launches["gather_rows"],
+        # its path is the v3 step's: the v3 run_scan's launches
+        "launches": launches_v3["v3"]["gather_rows"],
+        "launches_serving_v4": launches["gather_rows"],
+        "v3_profiled_device_us_per_frame": v3_profile["device_us"],
+        "v3_profiled_sort_us_per_frame": v3_profile["sort_us"],
         "max_abs_err": max_err,
         "ms": times["ll"][0],
         "plain_ms": times["ll"][1],

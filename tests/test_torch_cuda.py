@@ -1,6 +1,8 @@
 """vosk_tpu_torch on the card: the gather kernel, the two frame-step
-kernels (expand_v4, select_v4), the decoder with them, a streaming KaldiRecognizer decode, and a
-Kaldi-layout directory with i-vectors.
+kernels (expand_v4, select_v4), the decoder with them, the v3 decoder with
+the gather kernel at its four sites, a streaming KaldiRecognizer decode
+(v4, and v3 on a graph that keeps labeled eps arcs), and a Kaldi-layout
+directory with i-vectors.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -367,3 +369,135 @@ def test_kaldi_dir_with_ivectors_on_card(cuda_device, tmp_path):
                  [w["word"] for w in json.loads(x).get("result", [])]) for x in xs]
 
     assert words(outs) == words(cpu_outs)
+
+
+@pytest.mark.parametrize("dtype,B,P,N,top", [
+    (torch.float32, 32, 6008, 56000, 0),           # v3 acoustic lookup ll[b, pdf], M = 8
+    (torch.int32, 32, 7000, 7000, 1 << 22),        # tsil[b, prev], em level and eps rounds
+    (torch.int32, 32, 7000, 1024, (1 << 30) - 1),  # state[b, src] of an eps round
+    (torch.int32, 1, 7000, 1024, (1 << 30) - 1),   # the same in a B = 1 stream
+])
+def test_gather_kernel_at_v3_shapes(cuda_device, dtype, B, P, N, top):
+    g = torch.Generator().manual_seed(N)
+    if dtype == torch.float32:
+        table = torch.randn((B, P), generator=g)
+    else:
+        table = torch.randint(0, top, (B, P), generator=g, dtype=torch.int32)
+    idx = torch.randint(0, P, (B, N), generator=g, dtype=torch.int32)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(_bits(got), _bits(gather_rows_plain(table, idx)))
+
+
+def _label_eps(graph, share, seed):
+    """A copy of graph with a seeded share of its eps arcs given word labels."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    ol = graph.eps_olabel.copy()
+    hit = rng.random(len(ol)) < share
+    ol[hit] = rng.integers(1, 501, int(hit.sum()))
+    return dataclasses.replace(graph, eps_olabel=ol.astype(np.int32))
+
+
+@pytest.mark.parametrize("graph_kind,B,K,scale,eps_budget", [
+    ("raw", 16, 1024, 0.7, 1024),
+    ("raw", 4, 2048, 1.0, 16),        # more eps sources than Eb
+    ("labeled", 8, 1024, 1.0, 1024),  # prepared, labeled eps arcs kept: "auto" picks v3
+])
+def test_v3_decoder_kernel_plain_and_cpu_bit_equal(cuda_device, realistic_graph, graph_kind, B,
+                                                   K, scale, eps_budget):
+    """The v3 decoder with the gather kernel, with the plain gather on the
+    same CUDA tensors, and on the CPU: frontier, the nine record planes and
+    the best costs bit-equal; 2 + 2 * eps_iters gather launches a frame and
+    no v4 kernel."""
+    labeled = graph_kind == "labeled"
+    graph = _label_eps(realistic_graph, 0.3, 4) if labeled else realistic_graph
+    dec = BatchViterbi(graph, DecodeParams(beam=10.0, max_active=K, lattice_beam=6.0,
+                                           acoustic_scale=scale),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=labeled,
+                       device=cuda_device, frame_step="auto" if labeled else "v3")
+    dec.Eb = min(dec.Eb, eps_budget)  # a small budget: more eps sources than Eb
+    assert dec.frame_step == "v3" and dec.eps_iters == 2
+    T = 8
+    gen = torch.Generator().manual_seed(K + B)
+    chunks = [torch.randn((B, T, 64), generator=gen) * s for s in (0.1, 2.0)]
+    valid = torch.ones((B, T), dtype=torch.bool)
+    valid[1, 3:5] = False
+
+    def run(d, gather):
+        d.gather_op = gather
+        fr, outs = d.init_frontier(B), []
+        for ll in chunks:
+            fr, rec, best, bestf = d.decode_chunk(fr, ll.to(d.device), valid.to(d.device))
+            outs.append({**{f"frontier.{k}": v for k, v in fr.items()}, **rec,
+                         "best": best, "best_final": bestf})
+        return [{k: v.cpu() for k, v in o.items()} for o in outs]
+
+    before = (gather_rows.launches, expand_v4.launches, select_v4.launches)
+    try:
+        kern = run(dec, gather_rows)
+        after = (gather_rows.launches, expand_v4.launches, select_v4.launches)
+        plain = run(dec, gather_rows_plain)
+    finally:
+        dec.gather_op = gather_rows
+    assert after[0] - before[0] == 2 * T * (2 + 2 * dec.eps_iters)
+    assert after[1:] == before[1:]
+    cpu = run(dec.to("cpu"), gather_rows)
+    for a, b, c in zip(kern, plain, cpu):
+        assert set(a) >= {"prev", "olabel", "pdf", "f_state", "f_cost", "lat_ns", "lat_prev",
+                          "lat_arc", "lat_cost"}
+        for k in a:
+            assert torch.equal(_bits(a[k]), _bits(b[k])), k
+            assert torch.equal(_bits(a[k]), _bits(c[k])), k
+    # competing tokens, and eps rounds that take eps arcs
+    assert torch.isfinite(kern[0]["frontier.cost"]).sum(1).max() > 10
+    assert (kern[0]["lat_arc"][:, :, 1:] >= 0).any()
+
+
+def test_v3_recognizer_on_card(cuda_device, tmp_path):
+    """A model directory whose graph keeps labeled eps arcs: Model +
+    KaldiRecognizer take the v3 step, launch the gather kernel, keep the
+    frontier and records on the card, and give the JSON the plain gather
+    and the CPU give."""
+    import json
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.runtime import native_lattice
+    from vosk_tpu_torch.utils.benchdata import make_bench_model
+
+    native_lattice.build_library()
+    m = make_bench_model(num_states=20_000, num_pdfs=64, hidden=64, max_active=1024,
+                         num_words=500, compute_dtype="float32", seed=3, device="cpu")
+    native.save_model(tmp_path, m.config, m.am_params, _label_eps(m.graph, 0.3, 5), m.words,
+                      m.phones, m.phone_of_pdf, m.silence_pdfs)
+    pcm = (np.random.default_rng(0).standard_normal(3 * 16000) * 500).astype("<i2").tobytes()
+
+    def run(device, gather=None):
+        model = vosk_tpu_torch.Model(str(tmp_path), device=device)
+        rec = vosk_tpu_torch.KaldiRecognizer(model, 16000)
+        dec = rec._rec.dec
+        if gather is not None:
+            dec.gather_op = gather
+        rec.SetWords(True)
+        outs, on_card = [], True
+        for i in range(0, len(pcm), 6400):
+            rec.AcceptWaveform(pcm[i: i + 6400])
+            outs.append(rec.PartialResult())
+            r = rec._rec
+            on_card = on_card and r._frontier["state"].is_cuda and r._records[-1]["prev"].is_cuda
+        outs.append(rec.FinalResult())
+        return outs, on_card, dec
+
+    before = gather_rows.launches
+    outs, on_card, dec = run("cuda")
+    assert dec.frame_step == "v3" and on_card and gather_rows.launches > before
+    assert "text" in json.loads(outs[-1])
+    assert run("cuda", gather_rows_plain)[0] == outs
+    cpu_outs = run("cpu")[0]
+    assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
+        [json.loads(x).get("partial", json.loads(x).get("text")) for x in cpu_outs]

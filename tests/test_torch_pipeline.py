@@ -92,3 +92,56 @@ def test_run_scan_equals_steps_and_drops_records(pipes, audio):
     bare = FusedPipeline(tp.model, batch=B, chunk_seconds=CHUNK_S, collect_records=False)
     _, none, best2 = bare.run_scan(bare.init_state(), audio, ll_bias=lb)
     assert none is None and torch.equal(best2, best)
+
+
+@pytest.fixture(scope="module")
+def v3_pipes(pipes):
+    """Both packages' pipelines with frame_step="v3": the raw graph, eps
+    rounds and all."""
+    jp, tp = pipes
+    return (JFused(jp.model, batch=B, chunk_seconds=CHUNK_S, lattice_records=True,
+                   frame_step="v3"),
+            FusedPipeline(tp.model, batch=B, chunk_seconds=CHUNK_S, frame_step="v3"))
+
+
+def test_run_scan_v3_matches_jax(v3_pipes, audio):
+    """run_scan with the v3 step: records in the source's [n_chunks, B, T,
+    L, K|R] layout, the planes and shapes of the JAX run_scan and best costs
+    within the AM tolerance; and every record bit-equal to the JAX v3
+    decoder's on the port's own scores, chunk by chunk."""
+    from vosk_tpu.ops.viterbi import BatchViterbi as JViterbi, DecodeParams as JParams
+
+    jp, tp = v3_pipes
+    dec = tp.dec
+    assert dec.frame_step == jp.dec.frame_step == "v3" and dec.eps_iters == 2
+    assert dec.S == tp.model.graph.num_states  # the raw graph
+    lb = _bias(tp, 3)
+    _, jrecs, jbest = jp.run_scan(jp.init_state(), audio, ll_bias=lb)
+    _, trecs, tbest = tp.run_scan(tp.init_state(), audio, ll_bias=lb)
+    L = 1 + dec.eps_iters
+    assert set(trecs) == set(jrecs)
+    for k, v in trecs.items():
+        n = dec.R if k.startswith("lat_") else dec.K
+        assert v.shape == tuple(np.asarray(jrecs[k]).shape) == (N_CHUNKS, B, tp.T, L, n), k
+    np.testing.assert_allclose(tbest.numpy(), np.asarray(jbest), rtol=1e-6, atol=1e-4)
+
+    c = tp.model.config
+    jd = JViterbi(tp.model.graph, JParams(beam=c.beam, max_active=c.max_active,
+                                          lattice_beam=c.lattice_beam,
+                                          acoustic_scale=c.acoustic_scale),
+                  lattice_records=True, silence_pdfs=tp.model.silence_pdfs, frame_step="v3",
+                  layout="padded")
+    st = tp.init_state()
+    jf = jd.init_frontier(B)
+    n = torch.full((B,), audio.shape[2], dtype=torch.int32)
+    for i in range(N_CHUNKS):
+        fs, feats, fv = tp.ex.extract_chunk(st["feat"], torch.from_numpy(audio[i]), n_samples=n)
+        am, ll, lv = tp.am.process_chunk(st["am"], feats, fv)
+        st = {"feat": fs, "am": am}
+        jf, jr, _, _ = jd.decode_chunk(jf, (ll * 1e-3 + torch.from_numpy(lb[i])).numpy(),
+                                       lv.numpy())
+        for k in jr:
+            a, b = trecs[k][i].numpy(), np.asarray(jr[k])
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=k)
+    assert int(torch.isfinite(trecs["f_cost"]).sum(-1).max()) > 1
+    assert (trecs["lat_arc"][:, :, :, 1:] >= 0).any()  # eps rounds took eps arcs

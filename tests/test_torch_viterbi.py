@@ -78,5 +78,8 @@ def test_v4_bit_equal(graph, B, K, scale):
 
 
 def test_rejects_graph_not_v4_eligible(graph):
+    """The v4 step on a graph with eps arcs left in place raises; "auto"
+    takes the v3 step there, as the source does."""
     with pytest.raises(ValueError):
-        BatchViterbi(graph, DecodeParams(max_active=64), device="cpu")  # eps arcs left in place
+        BatchViterbi(graph, DecodeParams(max_active=64), device="cpu", frame_step="v4")
+    assert BatchViterbi(graph, DecodeParams(max_active=64), device="cpu").frame_step == "v3"

@@ -453,13 +453,13 @@ def build_lattice(
 
     frame_idx = 0
     for rec in records:
-        f_state = np.asarray(rec["f_state"][channel])  # [T, L, K]
-        f_cost = np.asarray(rec["f_cost"][channel])
-        lat_ns = np.asarray(rec["lat_ns"][channel])  # [T, L, R]
-        lat_prev = np.asarray(rec["lat_prev"][channel])
-        lat_arc = np.asarray(rec["lat_arc"][channel])
-        lat_cost = np.asarray(rec["lat_cost"][channel])
-        pdf_rec = np.asarray(rec["pdf"][channel])
+        f_state = to_host(rec["f_state"][channel])  # [T, L, K]
+        f_cost = to_host(rec["f_cost"][channel])
+        lat_ns = to_host(rec["lat_ns"][channel])  # [T, L, R]
+        lat_prev = to_host(rec["lat_prev"][channel])
+        lat_arc = to_host(rec["lat_arc"][channel])
+        lat_cost = to_host(rec["lat_cost"][channel])
+        pdf_rec = to_host(rec["pdf"][channel])
         T, L, _ = f_state.shape
         for t in range(T):
             is_real = (pdf_rec[t, 0] >= 0).any()

@@ -131,25 +131,30 @@ class NativeModel:
         self._grammar_decoders: "OrderedDict[str, object]" = OrderedDict()
         self._decoder_lock = threading.Lock()
 
-    def _new_decoder(self, graph):
+    def make_decoder(self, graph=None, optimize_graph=True, frame_step="auto"):
+        """A new BatchViterbi over `graph` (the model's by default) with the
+        model's search parameters, on the model's device."""
         from ..ops.viterbi import BatchViterbi, DecodeParams
 
         c = self.config
         return BatchViterbi(
-            graph,
+            self.graph if graph is None else graph,
             DecodeParams(beam=c.beam, max_active=c.max_active,
                          lattice_beam=c.lattice_beam,
                          acoustic_scale=c.acoustic_scale),
             silence_pdfs=self.silence_pdfs,
-            optimize_graph=True,
+            optimize_graph=optimize_graph,
             device=self.device,
+            frame_step=frame_step,
         )
 
     def shared_decoder(self, graph=None, cache_key=None):
         """A BatchViterbi shared by the model's recognizers (load-time graph
-        transform + device tables), built on first use: the same v4 step
-        with packed16 graph weights and lattice records that the JAX
-        package's `NativeModel.shared_decoder` builds.
+        transform + device tables), built on first use, as the JAX
+        package's `NativeModel.shared_decoder` builds it: `prepare_graph_v4`,
+        then the v4 step with packed16 graph weights where the prepared
+        graph is eps-free, else the v3 step (exact3 rows, eps rounds), with
+        lattice records.
 
         The main graph's decoder (graph None) is kept for the model's
         life.  Runtime-grammar recognizers pass their graph with the
@@ -158,11 +163,11 @@ class NativeModel:
         with self._decoder_lock:
             if graph is None:
                 if self._decoder is None:
-                    self._decoder = self._new_decoder(self.graph)
+                    self._decoder = self.make_decoder()
                 return self._decoder
             dec = self._grammar_decoders.get(cache_key)
             if dec is None:
-                dec = self._new_decoder(graph)
+                dec = self.make_decoder(graph)
                 self._grammar_decoders[cache_key] = dec
                 while len(self._grammar_decoders) > GRAMMAR_DECODERS:
                     self._grammar_decoders.popitem(last=False)

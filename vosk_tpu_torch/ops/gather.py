@@ -6,9 +6,11 @@ CUDA tensors; it replaces the JAX package's only Pallas kernel,
 CUDA source for what bounds it and what its design does about that).
 `gather_rows_plain` is the plain PyTorch version of the same function: the
 wrapper uses it for CPU tensors, and tests compare the kernel with it.  The
-decoder's v4 frame step no longer calls it: its two lookups live inside the
-frame-step kernels (ops/frame_step.py); the ports of the source's other
-call sites (v3, sharded) will take it.
+decoder's v3 frame step (ops/viterbi_v3.py) calls it at the source's four
+v3 sites: ll[b, pdf], tsil[b, prev], and per eps round state[b, src] and
+tsil[b, prev], 2 + 2 * eps_iters launches a decoded frame.  The v4 step
+does not: its two lookups live inside the frame-step kernels
+(ops/frame_step.py).  The sharded site (ROADMAP A13) is not ported.
 """
 from __future__ import annotations
 

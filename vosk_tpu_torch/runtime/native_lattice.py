@@ -2,10 +2,12 @@
 (core/libvosk_tpu_core.so, built from core/src/lattice.cc with
 `make -C core libvosk_tpu_core.so` or `build_library()`).
 
-Copy of `vosk_tpu/runtime/native_lattice.py` for the padded (v4) layout.
-The port has no Python lattice fallback: runtime/finishing.py raises when
-the library is missing.  Records may be torch tensors on any device; the
-v4 adapter (graph/lattice.py) pulls the one channel it needs to the host.
+Copy of `vosk_tpu/runtime/native_lattice.py` for the padded layout (v4 and
+v3 records).  The port has no Python lattice fallback: runtime/finishing.py
+raises when the library is missing.  Records may be torch tensors on any
+device; the v4 adapter (graph/lattice.py) converts the one channel it
+needs, and v3 records are marshalled as they are, that channel pulled to
+the host.
 """
 from __future__ import annotations
 
@@ -263,13 +265,14 @@ def _marshal_and_build(
     lib = _load()
     if lib is None:
         return None
-    from ..graph.lattice import convert_v4_records
+    from ..graph.lattice import convert_v4_records, to_host
 
-    records = convert_v4_records(
-        dec, records, channel,
-        init_states=None if init_override is None else init_override[0],
-    )
-    channel = 0
+    if "pm" in records[0]:
+        records = convert_v4_records(
+            dec, records, channel,
+            init_states=None if init_override is None else init_override[0],
+        )
+        channel = 0
 
     dtypes = {
         "f_state": np.int32,
@@ -282,7 +285,7 @@ def _marshal_and_build(
     }
     cat = {
         k: np.ascontiguousarray(
-            np.concatenate([np.asarray(r[k][channel]) for r in records], axis=0),
+            np.concatenate([to_host(r[k][channel]) for r in records], axis=0),
             dtype=dt,
         )
         for k, dt in dtypes.items()

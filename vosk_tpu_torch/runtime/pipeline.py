@@ -4,9 +4,12 @@ channel batch, with every streaming state on the model's device.
 Port of `vosk_tpu/runtime/pipeline.py` `FusedPipeline` (`init_state`,
 `step`, `run_scan` with its `ll_bias` hook), the batch-throughput surface
 that bench.py times.  The source's `lax.scan` over chunks becomes a Python
-loop that writes each chunk's decoder records into preallocated
-`[n_chunks, T, B, K|R]` buffers.  The decoder is the model's shared one
-(v4 step, packed16 rows, lattice records on).
+loop that writes each chunk's decoder records into preallocated buffers:
+`[n_chunks, T, B, K|R]` for the v4 step, the source's `[n_chunks, B, T, L,
+K|R]` for v3.  `frame_step` follows the source's rule: "auto" and "v4"
+decode the prepared graph (the model's shared decoder: v4 where it is
+eps-free, else v3; "v4" raises if it is not), "v3" decodes the raw graph
+with a decoder of its own.  Lattice records are always on.
 
 Not ported: the device mesh (ROADMAP A13), and, by decision, `run_adaptive`
 and the ragged unroll (ROADMAP A, "Not ported").  No CUDA graph is captured
@@ -26,6 +29,7 @@ class FusedPipeline:
         batch: int,
         chunk_seconds: float = 0.2,
         collect_records: bool = True,
+        frame_step: str = "auto",
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -34,7 +38,13 @@ class FusedPipeline:
         self.B = batch
         self.ex = model.feature_extractor()
         self.am = model.make_batch_am()
-        self.dec = model.shared_decoder()
+        if frame_step == "v3":
+            self.dec = model.make_decoder(optimize_graph=False, frame_step="v3")
+        else:
+            self.dec = model.shared_decoder()
+            if frame_step == "v4" and self.dec.frame_step != "v4":
+                raise ValueError("frame_step='v4' needs a graph that prepare_graph_v4 "
+                                 "leaves eps-free")
         self.rate = model.config.sample_rate
         self.chunk_samples = int(chunk_seconds * self.rate)
         self.F = self.ex.stream_max_frames(self.chunk_samples)
@@ -83,8 +93,9 @@ class FusedPipeline:
 
         audio: [n_chunks, B, chunk_samples] pre-staged chunks.  ll_bias:
         optional [n_chunks, B, T, P] acoustic bias (see `_step_impl`).
-        Returns (state, records {name: [n_chunks, T, B, K|R]} or None when
-        collect_records is off, best [n_chunks, B])."""
+        Returns (state, records {name: [n_chunks, T, B, K|R]} (v4) or {name:
+        [n_chunks, B, T, L, K|R]} (v3), or None when collect_records is off;
+        best [n_chunks, B])."""
         audio = self._as_device(audio, torch.float32)
         n_chunks = audio.shape[0]
         if n_samples is None:
@@ -95,7 +106,7 @@ class FusedPipeline:
             ll_bias = self._as_device(ll_bias, torch.float32)
         # one chunk's worth of scratch when records are not kept
         recs = self.dec.record_buffers(
-            (n_chunks if self.collect_records else 1, self.T, self.B))
+            (n_chunks if self.collect_records else 1, *self.dec.record_lead(self.T, self.B)))
         best = torch.empty((n_chunks, self.B), dtype=torch.float32,
                            device=self.device)
         for i in range(n_chunks):

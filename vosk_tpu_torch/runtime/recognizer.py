@@ -1,7 +1,8 @@
 """Streaming Recognizer in PyTorch: the state machine of the reference
 Recognizer (src/recognizer.h:43, src/recognizer.cc) over the port's
 features -> acoustic model (native TDNN-F or a Kaldi nnet3 network, with
-online i-vectors when the model ships them) -> v4 token passing.
+online i-vectors when the model ships them) -> token passing (the v4 step,
+or the v3 step where the prepared graph keeps epsilon arcs).
 
 Port of `vosk_tpu/runtime/recognizer.py`: states INITIALIZED / RUNNING /
 ENDPOINT / FINALIZED (recognizer.h:36-41), endpoint rules, 0.2 s chunking
@@ -89,8 +90,8 @@ class Recognizer:
         torch.backends.cudnn.allow_tf32 = False
         self.ex = model.feature_extractor()
         self.am = model.make_am()
-        # the model's shared decoder (v4 step, packed16 rows, lattice
-        # records), one per runtime grammar
+        # the model's shared decoder (v4 or v3 step, lattice records), one
+        # per runtime grammar
         self.dec = model.shared_decoder(
             graph=self.graph if self._grammar_key is not None else None,
             cache_key=self._grammar_key,
@@ -329,12 +330,18 @@ class Recognizer:
             (ol, f + self._folded_frames) for (ol, f) in ols if f < drop_frames
         ]
         self._prefix_pdfs += pdfs[:drop_frames]
-        last = self._records[n_drop - 1]  # v4 records: [T, B, K]
+        last = self._records[n_drop - 1]
         prev_init = self._fold_init
-        self._fold_init = (
-            to_host(last["state"][-1, 0]).copy(),
-            to_host(last["f_cost"][-1, 0]).copy(),
-        )
+        if "pm" in last:  # v4 records: [T, B, K]
+            self._fold_init = (
+                to_host(last["state"][-1, 0]).copy(),
+                to_host(last["f_cost"][-1, 0]).copy(),
+            )
+        else:  # v3 records: [B, T, L, K]
+            self._fold_init = (
+                to_host(last["f_state"][0, -1, -1]).copy(),
+                to_host(last["f_cost"][0, -1, -1]).copy(),
+            )
         self._extend_prefix_lattice(
             self._records[:n_drop], prev_init, self._fold_init
         )
@@ -393,8 +400,8 @@ class Recognizer:
 
     def _window_init_states(self):
         """[K] graph-state row of the frontier just before the retained
-        record window (the fold-boundary anchor of v4 tracebacks); None at
-        utterance start."""
+        record window (the fold-boundary anchor of v4 tracebacks; v3
+        records ignore it); None at utterance start."""
         if self._folded_frames == 0 or self._fold_init is None:
             return None
         return self._fold_init[0]
@@ -403,7 +410,10 @@ class Recognizer:
         """[K] state row just before the NEWEST record chunk (for the
         silence-weighting traceback over that chunk alone)."""
         if len(self._records) >= 2:
-            return to_host(self._records[-2]["state"][-1, 0])
+            prev = self._records[-2]
+            if "pm" in prev:  # v4: [T, B, K]
+                return to_host(prev["state"][-1, 0])
+            return to_host(prev["f_state"][0, -1, -1])
         win = self._window_init_states()
         # single retained chunk at utterance start: the decoder's initial
         # closure is the preceding frontier

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--rescoring-only]
 
-Phases, each of which raises on failure (the script then exits non-zero
+(`--rescoring-only` builds the kernels and runs phase 12 alone, with no
+result line.)  Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
@@ -86,6 +87,24 @@ and prints no result line):
      "auto", stream 10.5 s (it folds) with identical JSON under the plain
      gather, then BatchModel serves 8 x 3 s; (d) the gather kernel at the
      four v3 shapes.
+ 12. (run after 10) LM rescoring, on a realistic 200,000-state graph over the
+     same 100k words (the one cut, for load time): (a) phase 9's Kaldi
+     directory (i-vector graft, ivector/) with rescore/ (a seeded 3-gram,
+     about 10^5 bigrams and 10^5 trigrams, as G.carpa from the port's
+     builder; its bigram as G.fst) and a TDNN-LSTM rnnlm/ at the widths of
+     Kaldi's swbd TDNN-LSTM RNNLM recipe (embedding 1024, two fast-lstmp
+     layers of cell 1024 with projections 256 + 256, ReLU TDNN layers;
+     20,000 sparse word features): Model(dir) + KaldiRecognizer streams
+     10.5 s (it folds), counts zeroed just before; it must rescore (carpa
+     lookups and RNNLM histories > 0), launch both frame-step kernels, keep
+     the RNNLM and the frontier on the card, and give identical JSON with
+     the plain versions; then the RNNLM on the card against the same
+     rescorer on the CPU for 64 seeded histories (largest logit difference
+     under 1e-3); (b) the directory without the graft, with rescore/ only,
+     serves 8 x 3 s through BatchModel, which must rescore; (c) a native
+     directory of the TDNN-F with g.npz, rescore.arpa and a GRU rnnlm/
+     (1024/1024): one 3 s stream, and the GRU step on the card against
+     the CPU (under 1e-3).
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -1173,6 +1192,285 @@ def phase_split(torch, tmp):
         runs["main"]["dec"], runs["grammar"]["dec"])
 
 
+RESCORE_STATES = 200_000  # phase 12's graph: the one cut, for load time
+HISTORIES = 64           # phase 12's card-vs-CPU RNNLM histories
+
+
+def rescore_counts_zero(nm):
+    """Zero the LMs' lookup counts of a loaded model, just before a run."""
+    if nm.rescore_lm is not None and hasattr(nm.rescore_lm, "scored"):
+        nm.rescore_lm.scored = 0
+    if nm.rnnlm_rescorer is not None:
+        nm.rnnlm_rescorer.evaluated, nm.rnnlm_rescorer.seconds = 0, 0.0
+
+
+def rnnlm_launches(torch, resc, state):
+    """Device events of one history's evaluation under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    resc.logits(state)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        resc.logits(state).cpu()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def rescore_plausible(torch, nm, dec, seed, frames=30):
+    """Finish one B = 1 lattice of `frames` frames of plausible scores
+    (make_plausible_loglikes, snr 2.0: a path through the graph's word
+    arcs, as speech gives one; the noise streams' lattices keep no word)
+    through a Finisher with the model's rescoring and one without, the
+    counts zeroed just before.  Short: the source's composition is
+    unpruned, and grows about tenfold per doubling of frames on such
+    lattices.  Returns the stats line's numbers."""
+    import copy
+
+    import numpy as np
+
+    from vosk_tpu_torch.graph.lattice import build_lattice
+    from vosk_tpu_torch.runtime.finishing import Finisher
+    from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
+
+    ll = make_plausible_loglikes(nm.graph, len(nm.phone_of_pdf), 1, frames, snr=2.0,
+                                 seed=seed)
+    ll = torch.from_numpy(np.ascontiguousarray(ll.transpose(1, 0, 2))).to(dec.device)
+    fr, rec, _, _ = dec.decode_chunk(dec.init_frontier(1), ll)
+    torch.cuda.synchronize()
+    bare = copy.copy(nm)
+    bare.g_fst = None
+    rescore_counts_zero(nm)
+    lat, _ = build_lattice([rec], fr, 0, dec)
+    out = {"frames": frames, "decoded_nodes": lat.num_nodes, "decoded_arcs": len(lat.arcs)}
+    for name, fin in (("plain", Finisher(bare, dec)), ("rescored", Finisher(nm, dec))):
+        zero_counts()
+        t0 = time.perf_counter()
+        paths = fin.paths([rec], fr, 0, n=1)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_words"] = len(paths[0][1]) if paths else 0
+    resc = fin._rnn_rescorer
+    out.update(fin.rescore_stats, histories=resc.evaluated, rnnlm_s=resc.seconds,
+               lm_lookups=getattr(nm.rescore_lm, "scored", None))
+    if not (fin.rescoring and out["word_arcs"] > 0 and resc.evaluated > 1):
+        raise AssertionError(f"the plausible lattice did not rescore words: {out}")
+    return out
+
+
+def phase_rescoring(torch, tmp, states=RESCORE_STATES, histories=HISTORIES,
+                    rnnlm_kw=None, gru_dims=(1024, 1024)):
+    """Phase 12: LM rescoring on the card.  (a) A Kaldi V2 dir (phase 9's AM
+    with the i-vector graft and ivector/, on a realistic graph of `states`
+    states over the 100k words) with rescore/ (a seeded 3-gram as G.carpa,
+    its bigram as G.fst) and a TDNN-LSTM rnnlm/: the 10.5 s stream (it
+    folds) must rescore (carpa and RNNLM histories > 0), launch both
+    frame-step kernels, keep the RNNLM and the frontier on the card and
+    give identical JSON with the plain step ops; then the RNNLM on the card
+    against the same rescorer on the CPU for `histories` seeded histories,
+    largest logit difference under 1e-3.  (b) The dir without the graft,
+    with rescore/ only, serves 8 x 3 s through BatchModel.  (c) A native
+    dir of the TDNN-F with g.npz, rescore.arpa and a GRU rnnlm/: one 3 s
+    stream, and the GRU step on the card against the CPU.  Returns
+    {path: launches}."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
+    from vosk_tpu_torch.io.kaldi_rnnlm import KaldiRnnlmRescorer
+    from vosk_tpu_torch.models.rnnlm import RnnlmModel
+    from vosk_tpu_torch.ops import frame_step
+    from vosk_tpu_torch.utils import benchdata, kaldidata
+
+    t0 = time.perf_counter()
+    m = benchdata.make_bench_model(num_states=states, seed=SEED, device="cpu")
+    kaldidata.one_phone_per_pdf(m)
+    plain, ivdir, natdir = (Path(tmp) / n for n in ("resc_plain", "resc_ivector", "resc_native"))
+    export_kaldi_dir(m, plain)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = kaldidata.write_rescore_dir(m, plain, seed=SEED)
+    t_lm = time.perf_counter() - t0
+    ivcfg = kaldidata.make_ivector_config(feat_dim=m.am_config.feat_dim, seed=SEED)
+    kaldidata.write_ivector_kaldi_dir(m, plain, ivdir, ivcfg, seed=SEED)
+    t0 = time.perf_counter()
+    rinfo = kaldidata.write_kaldi_rnnlm_dir(ivdir / "rnnlm", m.words, seed=SEED,
+                                            **(rnnlm_kw or {}))
+    t_rnnlm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.save_model(natdir, m.config, m.am_params, m.graph, m.words, m.phones,
+                      m.phone_of_pdf, m.silence_pdfs)
+    kaldidata.write_native_rescoring(m, natdir, seed=SEED, rnnlm_dims=gru_dims)
+    t_native = time.perf_counter() - t0
+    log(f"rescoring: {states}-state graph, {len(m.words) - 1} words; Kaldi export "
+        f"{t_export:.3f} s; 3-gram ({json.dumps(counts)}) + G.carpa + G.fst written in "
+        f"{t_lm:.3f} s; rnnlm/ ({json.dumps(rinfo)}) in {t_rnnlm:.3f} s; native dir with "
+        f"g.npz, rescore.arpa and GRU {gru_dims} in {t_native:.3f} s")
+    del m
+    gc.collect()
+    out = {}
+
+    # (a) the Kaldi dir with rescore/ + rnnlm/, streaming
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(ivdir), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    nm = model._model
+    resc = nm.rnnlm_rescorer
+    if resc is None or nm.rescore_lm is None or nm.g_fst is None:
+        raise AssertionError("the Kaldi dir did not load its rescoring resources")
+    if not (resc.word_embedding.is_cuda
+            and all(t.is_cuda for w in resc.weights.values() for t in w.values())):
+        raise AssertionError("the RNNLM's parameters are not on the card")
+    vosk_tpu_torch.KaldiRecognizer(model, 16000)  # builds the shared decoder
+    dec = nm.shared_decoder()
+    log(f"rescoring kaldi: Model load {t_load:.3f} s (by stage "
+        f"{json.dumps({k: round(v, 3) for k, v in nm.load_seconds.items()})}); G.fst "
+        f"{nm.g_fst.num_states} states {nm.g_fst.num_arcs} arcs; RNNLM "
+        f"{len(resc.word_embedding)} words x {resc.word_embedding.shape[1]}, "
+        f"recurrent {resc.lm.net.has_recurrence()}")
+    pcm = noise_pcm(10.5, 16000, SEED + 15)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rescore_counts_zero(nm)
+    zero_counts()  # every kernel count, just before the path
+    outs, t = stream_long(model, pcm, 16000)
+    torch.cuda.synchronize()
+    out["rescored_kaldi"] = read_counts("the rescored Kaldi stream")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fin = t["rec"]._finisher
+    scored, evaluated, rnn_s = nm.rescore_lm.scored, resc.evaluated, resc.seconds
+    stats = dict(fin.rescore_stats)
+    if not (fin.rescoring and stats["lattices"] > 0 and scored > 0 and evaluated > 0):
+        raise AssertionError(f"the stream did not rescore: {stats}, carpa lookups {scored}, "
+                             f"RNNLM histories {evaluated}")
+    dec.step_ops = frame_step.PLAIN
+    try:
+        plain_outs, _ = stream_long(model, pcm, 16000)
+    finally:
+        dec.step_ops = frame_step.KERNELS
+    if plain_outs != outs:
+        raise AssertionError("the rescored stream differs between the kernels and the plain "
+                             "versions")
+    a = t["accept"]
+    log(f"rescoring kaldi stream 10.5 s (B=1, folded {t['folded']} frames): AcceptWaveform "
+        f"p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms; FinalResult "
+        f"{t['final'] * 1e3:.3f} ms; {stats['lattices']} lattices rescored in "
+        f"{stats['seconds']:.3f} s ({stats['seconds'] / stats['lattices'] * 1e3:.3f} ms a "
+        f"lattice), last composed lattice {stats['nodes']} nodes {stats['arcs']} arcs "
+        f"({stats['word_arcs']} with words); "
+        f"carpa lookups {scored}; RNNLM {evaluated} histories in {rnn_s:.3f} s = "
+        f"{rnn_s / evaluated * 1e3:.3f} ms a history; peak device memory {peak:.3f} GiB; "
+        f"{count_line(out['rescored_kaldi'])}; identical JSON with the plain versions "
+        f"({len(outs)} results); text {json.dumps(json.loads(outs[-1])['text'][:60])}")
+    log("rescoring kaldi stages (host s): " + stage_line(t["stages"]))
+    pl = rescore_plausible(torch, nm, dec, SEED + 18)
+    log(f"rescoring kaldi, one {pl['frames']}-frame lattice of plausible scores "
+        f"({pl['decoded_nodes']} nodes, {pl['decoded_arcs']} arcs): finishing "
+        f"{pl['plain_ms']:.3f} ms without rescoring ({pl['plain_words']} words), "
+        f"{pl['rescored_ms']:.3f} ms with ({pl['rescored_words']} words); composed lattice "
+        f"{pl['nodes']} nodes {pl['arcs']} arcs ({pl['word_arcs']} with words); carpa "
+        f"lookups {pl['lm_lookups']}; RNNLM {pl['histories']} histories in "
+        f"{pl['rnnlm_s']:.3f} s = {pl['rnnlm_s'] / pl['histories'] * 1e3:.3f} ms a history")
+
+    # the RNNLM on the card against the CPU, TF32 off
+    rng = np.random.default_rng(SEED + 16)
+    V = len(nm.words) - 1
+    hists = [((resc.lm.bos,) + tuple(rng.integers(1, V + 1, k).tolist()))[-resc.history:]
+             for k in rng.integers(1, 5, histories)]
+    t0 = time.perf_counter()
+    cpu = KaldiRnnlmRescorer(resc.lm, history=resc.history, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    err = emb_err = 0.0
+    card_s = []
+    for h in hists:
+        t0 = time.perf_counter()
+        got = resc.logits(h).cpu()
+        card_s.append(time.perf_counter() - t0)
+        err = max(err, (got - cpu.logits(h)).abs().max().item())
+    emb_err = (resc.word_embedding.cpu() - cpu.word_embedding).abs().max().item()
+    events = rnnlm_launches(torch, resc, hists[int(np.argmax([len(h) for h in hists]))])
+    log(f"rescoring RNNLM on card vs CPU ({histories} seeded histories of 1-4 words, TF32 "
+        f"off): largest abs logit difference {err:.3e} (bound 1e-3), word embedding "
+        f"{emb_err:.3e}; card ms a history p50 {np.median(card_s) * 1e3:.3f} max "
+        f"{max(card_s) * 1e3:.3f}; CPU rescorer built in {t_cpu:.3f} s; one 4-word history "
+        f"= {events} device events")
+    if not err < 1e-3:
+        raise AssertionError(f"the card's RNNLM disagrees with the CPU's: {err}")
+    out["rnnlm"] = dict(err=err, ms=float(np.median(card_s) * 1e3), events=events,
+                        stream_histories=evaluated, plausible=pl)
+    del model, nm, resc, cpu, dec, t, fin
+    gc.collect()
+
+    # (b) the dir without the graft, rescore/ only, through BatchModel
+    t0 = time.perf_counter()
+    bm = vosk_tpu_torch.BatchModel(str(plain), max_batch_size=B, device="cuda")
+    torch.cuda.synchronize()
+    log(f"rescoring batch: BatchModel load {time.perf_counter() - t0:.3f} s")
+    fin = bm._pipeline._finisher
+    out["rescored_batch"] = phase_serving(torch, bm)
+    if not (fin.rescoring and fin.rescore_stats["lattices"] > 0
+            and bm._model.rescore_lm.scored > 0):
+        raise AssertionError(f"the batch path did not rescore: {fin.rescore_stats}")
+    log(f"rescoring batch: {json.dumps(fin.rescore_stats)}; carpa lookups "
+        f"{bm._model.rescore_lm.scored}")
+    del bm, fin
+    gc.collect()
+
+    # (c) the native dir with g.npz, rescore.arpa and a GRU rnnlm/
+    t0 = time.perf_counter()
+    gru = RnnlmModel.load(natdir / "rnnlm", device="cuda")
+    torch.cuda.synchronize()
+    t_gru = time.perf_counter() - t0
+    del gru
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(natdir), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    nm = model._model
+    if not all(v.is_cuda for v in nm.rnnlm.params.values()) or nm.rescore_lm is None:
+        raise AssertionError("the native dir's GRU is not on the card or its ARPA is missing")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # every kernel count, just before the path
+    res, accept, final_s, rec = stream_short(model, 16000, SEED + 17)
+    torch.cuda.synchronize()
+    out["rescored_native"] = read_counts("the rescored native stream")
+    fin = rec._rec._finisher
+    if not (fin.rescoring and fin.rescore_stats["lattices"] > 0
+            and fin._rnn_rescorer.evaluated > 0):
+        raise AssertionError(f"the native stream did not rescore: {fin.rescore_stats}")
+    gcpu = RnnlmModel(nm.rnnlm.cfg, {k: v.cpu() for k, v in nm.rnnlm.params.items()},
+                      device="cpu")
+    h, hc = nm.rnnlm.init_hidden(), gcpu.init_hidden()
+    gerr = 0.0
+    with torch.no_grad():
+        for w in [nm.rnnlm.cfg.bos] + rng.integers(1, V + 1, 15).tolist():
+            (h, lp), (hc, lpc) = nm.rnnlm.step(h, w), gcpu.step(hc, w)
+            gerr = max(gerr, (h.cpu() - hc).abs().max().item(),
+                       (lp.cpu() - lpc).abs().max().item())
+    gr = fin._rnn_rescorer
+    log(f"rescoring native: GRU {nm.rnnlm.cfg.embed_dim}/{nm.rnnlm.cfg.hidden_dim} over "
+        f"{nm.rnnlm.cfg.vocab_size} words loaded in {t_gru:.3f} s; Model load {t_load:.3f} s; "
+        f"3 s stream AcceptWaveform p50 {np.median(accept) * 1e3:.3f} ms, FinalResult "
+        f"{final_s * 1e3:.3f} ms; {json.dumps(fin.rescore_stats)}; GRU {gr.evaluated} steps "
+        f"in {gr.seconds:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"{count_line(out['rescored_native'])}; GRU step card vs CPU over 16 words: largest "
+        f"abs difference {gerr:.3e} (bound 1e-3); text {json.dumps(res['text'][:60])}")
+    if not gerr < 1e-3:
+        raise AssertionError(f"the card's GRU disagrees with the CPU's: {gerr}")
+    pl = rescore_plausible(torch, nm, nm.shared_decoder(), SEED + 19)
+    log(f"rescoring native, one {pl['frames']}-frame lattice of plausible scores "
+        f"({pl['decoded_nodes']} nodes, {pl['decoded_arcs']} arcs): finishing "
+        f"{pl['plain_ms']:.3f} ms without rescoring, {pl['rescored_ms']:.3f} ms with "
+        f"({pl['rescored_words']} words); composed lattice {pl['nodes']} nodes "
+        f"{pl['arcs']} arcs ({pl['word_arcs']} with words); GRU {pl['histories']} steps "
+        f"in {pl['rnnlm_s']:.3f} s = {pl['rnnlm_s'] / pl['histories'] * 1e3:.3f} ms a step")
+    out["gru"] = dict(err=gerr, plausible=pl)
+    del model, nm, rec, fin, gcpu
+    gc.collect()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1204,6 +1502,10 @@ def main() -> int:
                                 or "spill" in line or "stack frame" in line):
             log("  " + line.strip())
 
+    if sys.argv[1:] == ["--rescoring-only"]:  # phase 12 alone, for iterating on it
+        with tempfile.TemporaryDirectory() as tmp:
+            log(json.dumps(phase_rescoring(torch, tmp)))
+        return 0
     times, max_err = phase_kernel(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         bm = phase_model(torch, dev, tmp)
@@ -1236,10 +1538,13 @@ def main() -> int:
         max_err = max(max_err, kaldi_err, split_err)
         for key, d, seed in (("split", d_main, SEED + 9), ("grammar", d_gram, SEED + 10)):
             fs_times[key] = phase_frame_step(torch, key, d, *real_frame(torch, d, P, seed))
+        rescoring = phase_rescoring(torch, tmp)
+        rnnlm = {k: rescoring.pop(k) for k in ("rnnlm", "gru")}
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
              "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
-             "split": launches_split, "grammar": launches_grammar, **launches_v3}
+             "split": launches_split, "grammar": launches_grammar, **launches_v3,
+             **rescoring}
     gather_times = {**b1, **kaldi_times, **split_times, **v3_times}
     kernels = [{
         "name": "gather_rows",
@@ -1288,6 +1593,7 @@ def main() -> int:
                for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"), (5, "library_ms"))},
             "profiled_launches_per_frame": sum(v for k, v in profile.items() if name in k),
         })
+    log("rescoring RNNLM (torch ops, no hand kernel): " + json.dumps(rnnlm))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -195,19 +195,40 @@ def test_native_dir_roundtrip_both_ways(tmp_path):
 
 @pytest.mark.parametrize("extra", ["rescore.arpa", "rnnlm", "ivector"])
 def test_unported_model_parts_raise(tmp_path, extra):
-    """Rescoring resources raise at load; a native TDNN-F with an i-vector
-    input (an `ivector/` dir beside it is not read, as in the source)
-    raises when its AM is built.  Kaldi directories with i-vectors load
-    (tests/test_torch_kaldi_e2e.py)."""
+    """A native TDNN-F with an i-vector input (an `ivector/` dir beside it is
+    not read, as in the source) raises when its AM is built.  Rescoring
+    resources load as the source loads them (they raised before the
+    rescoring slice): g.npz with rescore.arpa, or with a GRU rnnlm/.  Kaldi
+    directories with i-vectors load (tests/test_torch_kaldi_e2e.py)."""
+    from vosk_tpu.models.rnnlm import RnnlmModel as JRnnlm
+    from vosk_tpu_torch.utils import kaldidata
+
     m = benchdata.make_bench_model(num_states=500, num_pdfs=20, hidden=16,
                                    max_active=100, num_words=10, device="cpu")
     if extra == "ivector":
         m.config.am["ivector_dim"] = 4
     native.save_model(tmp_path, m.config, m.am_params, m.graph, m.words,
                       m.phones, m.phone_of_pdf, m.silence_pdfs)
-    (tmp_path / extra).mkdir()
-    with pytest.raises(NotImplementedError):
-        native.load_model(tmp_path, device="cpu").make_am()
+    if extra == "ivector":
+        (tmp_path / extra).mkdir()
+        with pytest.raises(NotImplementedError):
+            native.load_model(tmp_path, device="cpu").make_am()
+        return
+    kaldidata.write_native_rescoring(m, tmp_path, seed=1, rnnlm_dims=(3, 4),
+                                     num_bigrams=20, num_trigrams=10)
+    (tmp_path / ("rnnlm" if extra == "rescore.arpa" else "rescore.arpa")).rename(
+        tmp_path / "unused")
+    t, j = native.load_model(tmp_path, device="cpu"), j_native.load_model(tmp_path)
+    _fsts_equal(t.g_fst, j.g_fst)
+    if extra == "rescore.arpa":
+        assert t.rnnlm is None is j.rnnlm
+        assert (t.rescore_lm.ngrams, t.rescore_lm.backoffs) == (j.rescore_lm.ngrams,
+                                                                j.rescore_lm.backoffs)
+    else:
+        assert t.rescore_lm is None is j.rescore_lm
+        assert t.rnnlm.cfg.vocab_size == j.rnnlm.cfg.vocab_size == len(m.words)
+        for k, v in JRnnlm.load(tmp_path / "rnnlm").params.items():
+            np.testing.assert_array_equal(t.rnnlm.params[k].numpy(), np.asarray(v))
 
 
 def _lattices_equal(a, b):
@@ -295,7 +316,8 @@ def test_finish_lattice_matches_source(decoded, lattices):
     jd, _, _, td, _, _ = decoded
     wb = {1: "singleton"}
     tm = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=SIL,
-                         phone_of_pdf=np.arange(64) % 3, word_boundary=wb)
+                         phone_of_pdf=np.arange(64) % 3, word_boundary=wb,
+                         g_fst=None, rescore_lm=None, rnnlm=None, rnnlm_rescorer=None)
     jm = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=SIL,
                          phone_of_pdf=np.arange(64) % 3, word_boundary=wb,
                          g_fst=None, rescore_lm=None, rnnlm=None)

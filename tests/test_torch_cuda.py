@@ -1,8 +1,9 @@
 """vosk_tpu_torch on the card: the gather kernel, the two frame-step
 kernels (expand_v4, select_v4), the decoder with them, the v3 decoder with
 the gather kernel at its four sites, a streaming KaldiRecognizer decode
-(v4, and v3 on a graph that keeps labeled eps arcs), and a Kaldi-layout
-directory with i-vectors.
+(v4, and v3 on a graph that keeps labeled eps arcs), a Kaldi-layout
+directory with i-vectors, and the rescoring RNNLMs (Kaldi TDNN-LSTM and
+GRU) against the CPU.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -501,3 +502,35 @@ def test_v3_recognizer_on_card(cuda_device, tmp_path):
     cpu_outs = run("cpu")[0]
     assert [json.loads(x).get("partial", json.loads(x).get("text")) for x in outs] == \
         [json.loads(x).get("partial", json.loads(x).get("text")) for x in cpu_outs]
+
+
+def test_rnnlms_on_card_match_cpu(cuda_device, tmp_path):
+    """The TDNN-LSTM Kaldi RNNLM and the GRU on the card against the same
+    models on the CPU (TF32 off): logits and log-probs within 1e-4."""
+    from vosk_tpu_torch.graph.fst import SymbolTable
+    from vosk_tpu_torch.io.kaldi_rnnlm import KaldiRnnlmRescorer, read_rnnlm_dir
+    from vosk_tpu_torch.models.rnnlm import RnnlmConfig, RnnlmModel, init_rnnlm_params
+    from vosk_tpu_torch.utils import kaldidata
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    words = SymbolTable(["<eps>"] + [f"w{i}" for i in range(1, 2001)])
+    kaldidata.write_kaldi_rnnlm_dir(tmp_path, words, seed=1, embedding_dim=64, cell_dim=32,
+                                    recurrent_dim=16, nonrecurrent_dim=16, num_features=500,
+                                    num_frequent=100)
+    lm = read_rnnlm_dir(tmp_path)
+    card = KaldiRnnlmRescorer(lm, device=cuda_device)
+    cpu = KaldiRnnlmRescorer(lm, device="cpu")
+    rng = np.random.default_rng(0)
+    for k in (0, 1, 2, 3):
+        st = (lm.bos,) + tuple(rng.integers(1, 2001, k).tolist())
+        got, want = card.logits(st).cpu(), cpu.logits(st)
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-4), (got - want).abs().max()
+        assert card.score(st, 5) == (-float(got[5]), (st + (5,))[-4:])
+    cfg = RnnlmConfig(vocab_size=2001, embed_dim=32, hidden_dim=48)
+    params = init_rnnlm_params(cfg, seed=2)
+    g_card, g_cpu = RnnlmModel(cfg, params, device=cuda_device), RnnlmModel(cfg, params, "cpu")
+    h, hc = g_card.init_hidden(), g_cpu.init_hidden()
+    for w in (cfg.bos, 7, 1999, 3):
+        (h, lp), (hc, lpc) = g_card.step(h, w), g_cpu.step(hc, w)
+        assert torch.allclose(lp.cpu(), lpc, rtol=1e-4, atol=1e-4)
+    assert h.is_cuda and g_card.params["embed"].is_cuda

@@ -139,7 +139,8 @@ def test_wordless_best_path_gives_empty_result(monkeypatch, nbest_cost, want):
     monkeypatch.setattr(native_lattice, "mbr_native", lambda *a, **k: (12.0, []))
     monkeypatch.setattr(native_lattice, "nbest_native",
                         lambda *a, **k: [(nbest_cost, [(7, 3, 9, 0.25)])])
-    model = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=[0])
+    model = SimpleNamespace(config=SimpleNamespace(lattice_beam=6.0), silence_pdfs=[0],
+                            g_fst=None)
     fin = finishing.Finisher(model, dec=None)
     assert fin.paths([{}], frontier=None, channel=0, n=1) == want
 

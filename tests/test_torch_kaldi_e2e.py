@@ -243,13 +243,33 @@ def test_batch_model_refuses_an_ivector_model(dirs):
         vosk_tpu_torch.BatchModel(str(dirs["ivector"]), max_batch_size=2, device="cpu")
 
 
+def _add_rescoring(path, parts=("rescore", "rnnlm"), seed=0):
+    """rescore/ (G.carpa + G.fst) and an LSTM rnnlm/ over the dir's words,
+    written by the port's kaldidata writers at small dims."""
+    from types import SimpleNamespace
+
+    from vosk_tpu_torch.graph.fst import SymbolTable
+    from vosk_tpu_torch.utils import kaldidata
+
+    words = SymbolTable.read_text(path / "graph" / "words.txt")
+    if "rescore" in parts:
+        kaldidata.write_rescore_dir(SimpleNamespace(words=words), path, seed=seed,
+                                    num_bigrams=30, num_trigrams=20)
+    if "rnnlm" in parts:
+        kaldidata.write_kaldi_rnnlm_dir(path / "rnnlm", words, seed=seed, embedding_dim=12,
+                                        cell_dim=6, recurrent_dim=3, nonrecurrent_dim=3,
+                                        num_features=40, num_frequent=6)
+
+
 @pytest.mark.parametrize("change, error", [
     ("no_ivector", FileNotFoundError),
-    ("rescore", NotImplementedError),
-    ("rnnlm", NotImplementedError),
+    ("rescore", None),
+    ("rnnlm", None),
     ("pitch", NotImplementedError),
 ])
 def test_unported_or_missing_parts_raise(dirs, tmp_path, change, error):
+    """A missing ivector/ and a pitch.conf raise; rescore/ and rnnlm/ load
+    as the source loads them (they raised before the rescoring slice)."""
     broken = tmp_path / "broken"
     shutil.copytree(dirs["ivector"], broken)
     if change == "no_ivector":
@@ -257,24 +277,49 @@ def test_unported_or_missing_parts_raise(dirs, tmp_path, change, error):
     elif change == "pitch":
         (broken / "conf" / "pitch.conf").write_text("--sample-frequency=16000\n")
     else:
-        (broken / change).mkdir()
-    with pytest.raises(error):
-        vosk_tpu_torch.Model(str(broken), device="cpu")
+        _add_rescoring(broken, (change,))
+    if error is not None:
+        with pytest.raises(error):
+            vosk_tpu_torch.Model(str(broken), device="cpu")
+        return
+    t = vosk_tpu_torch.Model(str(broken), device="cpu")._model
+    j = vosk_tpu.Model(str(broken))._model
+    if change == "rescore":
+        np.testing.assert_array_equal(t.rescore_lm.lm_states, j.rescore_lm.lm_states)
+        assert (t.g_fst.arcs, t.g_fst.final) == (j.g_fst.arcs, j.g_fst.final)
+        assert t.rnnlm_rescorer is None
+    else:
+        tr, jr = t.rnnlm_rescorer, j.rnnlm_rescorer
+        assert t.rescore_lm is None and t.g_fst is None
+        for st in ((tr.lm.bos,), (tr.lm.bos, 3, 5), (tr.lm.bos, 1, 2, 9)):
+            assert abs(tr.final_cost(st) - jr.final_cost(st)) <= 1e-4
+            for w in (1, 4, 8):
+                assert abs(tr.score(st, w)[0] - jr.score(st, w)[0]) <= 1e-4
 
 
-def test_kaldi_dir_decodes_without_jax(dirs):
+def test_kaldi_dir_decodes_without_jax(dirs, tmp_path):
+    """The i-vector dir with rescore/ and an LSTM rnnlm/ decodes and
+    rescores with jax and vosk_tpu blocked."""
+    path = tmp_path / "rescored"
+    shutil.copytree(dirs["ivector"], path)
+    _add_rescoring(path)
     code = f"""
 import json, sys
 sys.modules["jax"] = None
 sys.modules["vosk_tpu"] = None
 import numpy as np
 import vosk_tpu_torch
-model = vosk_tpu_torch.Model({str(dirs["ivector"])!r}, device="cpu")
+model = vosk_tpu_torch.Model({str(path)!r}, device="cpu")
 rec = vosk_tpu_torch.KaldiRecognizer(model, 16000)
 pcm = (np.random.default_rng(0).standard_normal(16000) * 500).astype("<i2").tobytes()
 for i in range(0, len(pcm), 3200):
     rec.AcceptWaveform(pcm[i:i + 3200])
+rec.AcceptWaveform(np.clip(np.sin(np.arange(8000) / 3.0) * 8000, -32768, 32767)
+                   .astype("<i2").tobytes())
 assert "text" in json.loads(rec.FinalResult())
+fin = rec._rec._finisher
+assert fin.rescoring and fin.rescore_stats["lattices"] > 0
+assert model._model.rnnlm_rescorer.evaluated > 0
 assert not any(m == "jax" or m.startswith(("jax.", "vosk_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("OK")

@@ -205,17 +205,33 @@ def test_cyclic_net_raises():
         "b": t3.NonlinComponent(FEAT, "TanhComponent"),
     }
     net.component_order = ["a", "b"]
+    # a streaming AM needs a feedforward net (the source's context walk
+    # would not end on this one)
     with pytest.raises(NotImplementedError):
         Nnet3Am(net, device="cpu")
-    with pytest.raises(NotImplementedError):
-        net.evaluate({"input": torch.zeros((1, 4, FEAT))}, t3.net_tensors(net, "cpu"))
+    # evaluate unrolls it in time, as the source's recurrent evaluator does
+    buf = io.BytesIO()
+    net.write(t3.BinaryWriter(buf))
+    jnet = j3.Nnet3.read(JReader(io.BytesIO(buf.getvalue())))
+    x = np.random.default_rng(1).standard_normal((2, 4, FEAT)).astype(np.float32)
+    got = net.evaluate({"input": torch.from_numpy(x)}, t3.net_tensors(net, "cpu")).numpy()
+    for b in range(2):
+        want = np.asarray(jnet.evaluate({"input": x[b]}))
+        np.testing.assert_allclose(got[b], want, rtol=1e-5, atol=1e-5)
 
 
 def test_lstm_component_raises():
+    """The port reads LstmNonlinearityComponent as the source does, and its
+    forward matches the source's within 1e-6 (it raised before the RNNLM
+    slice)."""
     buf = io.BytesIO()
-    j3.LstmNonlinearityComponent(np.ones((3, 4), np.float32)).write(JWriter(buf))
-    with pytest.raises(NotImplementedError):
-        t3.read_component(BinaryReader(io.BytesIO(buf.getvalue())))
-    # the source reads it
-    assert isinstance(j3.read_component(JReader(io.BytesIO(buf.getvalue()))),
-                      j3.LstmNonlinearityComponent)
+    params = np.random.default_rng(2).standard_normal((3, 4)).astype(np.float32)
+    j3.LstmNonlinearityComponent(params).write(JWriter(buf))
+    tc = t3.read_component(BinaryReader(io.BytesIO(buf.getvalue())))
+    jc = j3.read_component(JReader(io.BytesIO(buf.getvalue())))
+    assert isinstance(tc, t3.LstmNonlinearityComponent)
+    assert isinstance(jc, j3.LstmNonlinearityComponent)
+    np.testing.assert_array_equal(tc.params, jc.params)
+    x = np.random.default_rng(3).standard_normal((2, 5, 20)).astype(np.float32)
+    got = tc.forward(torch.from_numpy(x), tc.tensors("cpu")).numpy()
+    np.testing.assert_allclose(got, np.asarray(jc.forward(x)), rtol=1e-6, atol=1e-6)

@@ -1,7 +1,9 @@
 """vosk_tpu_torch — the PyTorch/CUDA port of vosk_tpu.
 
 The reference binding's surface (python/vosk/__init__.py) on native and
-Kaldi (V1/V2, nnet3 + i-vectors + HCLG or HCLr/Gr) model directories:
+Kaldi (V1/V2, nnet3 + i-vectors + HCLG or HCLr/Gr) model directories, with
+LM rescoring where they ship it (a Kaldi rescore/ and rnnlm/; a native
+g.npz, rescore.arpa and GRU rnnlm/):
 streaming recognition through `Model` / `KaldiRecognizer`,
 batch serving through `BatchModel` / `BatchRecognizer` (the reference's GPU
 batch pipeline), `SetLogLevel`, `GpuInit` and `GpuThreadInit`, with the

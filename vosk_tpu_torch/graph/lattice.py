@@ -1,9 +1,9 @@
 """Host-side lattice finishing: build a word lattice from the decoder's
 records, prune, compute arc posteriors (forward-backward), extract n-best.
 
-Copy of `vosk_tpu/graph/lattice.py` (numpy only) without LM rescoring
-(`rescore_lattice`, ROADMAP A15): `LatArc`, `Lattice`, `convert_v4_records`,
-`build_lattice` and `splice_lattices`.  Records and frontiers may be torch
+Copy of `vosk_tpu/graph/lattice.py` (numpy only): `LatArc`, `Lattice`,
+`rescore_lattice` (LM rescoring by on-demand composition),
+`convert_v4_records`, `build_lattice` and `splice_lattices`.  Records and frontiers may be torch
 tensors on any device; `to_host` pulls what the host reads.  The native
 library in `core/` builds and finishes the same lattices faster
 (runtime/native_lattice.py); this Python lattice serves the streaming
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -290,6 +291,68 @@ class Lattice:
             f1 = out[j + 1][1] if j + 1 < len(out) else T_end
             words.append((w, f0, max(f1, f0 + 1)))
         return words
+
+
+def rescore_lattice(
+    lat: Lattice,
+    subtract_lm=None,
+    add_lm=None,
+    add_scale: float = 1.0,
+) -> Lattice:
+    """LM rescoring by on-demand composition: expand nodes to
+    (node, sub_state, add_state); each word arc's graph cost gets
+    -sub_lm.score + add_scale*add_lm.score; finals adjusted with </s> costs.
+
+    This is the reference's rescoring chain (recognizer.cc:680-693): compose
+    with the negated graph LM, then with the const-ARPA (and optionally an
+    RNNLM mixture via `add_lm` being a mixture object).
+    """
+    if subtract_lm is None and add_lm is None:
+        return lat
+
+    init = (
+        lat,
+        subtract_lm.initial_state() if subtract_lm else None,
+        add_lm.initial_state() if add_lm else None,
+    )
+    out = Lattice()
+    out.final[0] = math.inf
+    # map (node, sub_state, add_state) -> new node; process in topo order of
+    # the source lattice (nodes are topo-ordered by construction)
+    states_of: dict = defaultdict(dict)  # node -> {(ss, as): new_node}
+    states_of[0][(init[1], init[2])] = 0
+    out.node_frame[0] = lat.node_frame[0]
+
+    for u in lat.topo_order():
+        for key, nu in list(states_of[u].items()):
+            ss, as_ = key
+            if np.isfinite(lat.final[u]):
+                fc = lat.final[u]
+                if subtract_lm is not None:
+                    fc -= subtract_lm.final_cost(ss)
+                if add_lm is not None:
+                    fc += add_scale * add_lm.final_cost(as_)
+                out.final[nu] = min(out.final[nu], fc)
+            for ai in lat.out[u]:
+                a = lat.arcs[ai]
+                gc = a.graph_cost
+                ss2, as2 = ss, as_
+                if a.olabel != 0:
+                    if subtract_lm is not None:
+                        c, ss2 = subtract_lm.score(ss, a.olabel)
+                        gc -= c
+                    if add_lm is not None:
+                        c, as2 = add_lm.score(as_, a.olabel)
+                        gc += add_scale * c
+                key2 = (ss2, as2)
+                tgt = states_of[a.dst].get(key2)
+                if tgt is None:
+                    tgt = out.add_node(lat.node_frame[a.dst])
+                    states_of[a.dst][key2] = tgt
+                out.add_arc(
+                    LatArc(nu, tgt, a.olabel, gc, a.acoustic_cost, a.is_frame, a.pdf)
+                )
+    return out
 
 
 def convert_v4_records(

@@ -12,11 +12,14 @@ Supported: final.mdl (TransitionModel + the nnet3 components of
 io/nnet3.py), HCLG.fst and split HCLr.fst/Gr.fst lookahead graphs
 (vector/const/NGram formats), words.txt, mfcc/fbank conf, model.conf decode
 options and i-vector silence weighting, global CMVN stats, ivector/
-extractor dirs, word_boundary.int.
+extractor dirs, word_boundary.int, rescore/ (G.carpa + G.fst) and rnnlm/
+(a Kaldi RNNLM on `device`).  As in the source, a rescore/ or rnnlm/ whose
+files do not parse is skipped with a warning and the model decodes without
+rescoring; carrying a parsed RNNLM to the device is outside that guard, so
+a device error raises.
 
-Not ported, and raising rather than decoding without them: pitch.conf
-(ROADMAP A10), rescore/ and rnnlm/ (A15; the source warns and decodes
-without rescoring when they fail to parse, the port refuses them outright).
+Not ported, and raising rather than decoding without it: pitch.conf
+(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import numpy as np
 from ..graph.fst import SymbolTable
 from ..models.am import Nnet3Am
 from ..utils.config import apply_options, read_config_file
-from ..utils.logging import log_info
+from ..utils.logging import log_info, log_warn
 from . import native
 from .kaldi_models import raw_fst_to_std, read_fst
 from .nnet3 import read_final_mdl
@@ -55,18 +58,12 @@ def is_kaldi_model_dir(path) -> bool:
 
 def _refuse_unported(p: Path, v2: bool) -> None:
     pitch_conf = (p / "conf" / "pitch.conf") if v2 else (p / "pitch.conf")
-    unported = [
-        (pitch_conf, "online pitch features", "A10"),
-        (p / "rescore", "LM rescoring (G.carpa + G.fst)", "A15"),
-        (p / "rnnlm", "RNNLM rescoring", "A15"),
-    ]
-    for path, what, item in unported:
-        if path.exists():
-            raise NotImplementedError(
-                f"'{p}' ships {path.relative_to(p)} ({what}), which the port "
-                f"does not support yet (ROADMAP {item}); it will not decode "
-                "without it"
-            )
+    if pitch_conf.exists():
+        raise NotImplementedError(
+            f"'{p}' ships {pitch_conf.relative_to(p)} (online pitch features), "
+            "which the port does not support yet (ROADMAP A10); it will not "
+            "decode without it"
+        )
 
 
 def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeModel:
@@ -249,6 +246,54 @@ def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeMod
 
         log_info(f"Reading CMVN stats from {cmvn_stats}")
         model.global_cmvn_stats = read_kaldi_matrix(cmvn_stats)
+
+    # ---- big-LM rescoring pair (reference model.cc:308-314): binary
+    # const-ARPA G.carpa to ADD, small word-level G.fst to SUBTRACT
+    rescore_dir = p / "rescore"
+    carpa = rescore_dir / "G.carpa"
+    if carpa.exists():
+        from .kaldi_carpa import read_carpa
+
+        log_info(f"Loading CARPA model from {carpa}")
+        t0 = time.perf_counter()
+        # a file that does not parse leaves the model decoding without
+        # big-LM rescoring, as in the source
+        try:
+            model.rescore_lm = read_carpa(carpa)
+            seconds["carpa"] = time.perf_counter() - t0
+            gfst_small = rescore_dir / "G.fst"
+            if gfst_small.exists():
+                log_info(f"Loading subtract G.fst model from {gfst_small}")
+                t0 = time.perf_counter()
+                g = raw_fst_to_std(read_fst(gfst_small))
+                # ReadAndPrepareLmFst semantics: project onto output labels
+                # so the LM is a word acceptor with eps backoff arcs
+                for s in range(g.num_states):
+                    g.arcs[s] = [(ol, ol, w, ns) for (il, ol, w, ns) in g.arcs[s]]
+                model.g_fst = g
+                seconds["g_fst"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — rescoring is optional
+            model.rescore_lm = None
+            model.g_fst = None
+            log_warn(f"rescore/ dir present but not usable: {e}")
+
+    # ---- Kaldi RNNLM dir (reference model.cc:316-339): nnet3 net +
+    # word-feature embedding composition
+    rnnlm_raw = p / "rnnlm" / "final.raw"
+    if rnnlm_raw.exists():
+        from .kaldi_rnnlm import KaldiRnnlmRescorer, read_rnnlm_dir
+
+        log_info(f"Loading RNNLM model from {rnnlm_raw}")
+        t0 = time.perf_counter()
+        try:
+            lm = read_rnnlm_dir(p / "rnnlm")
+        except Exception as e:  # noqa: BLE001 — unsupported nets warn loudly
+            lm = None
+            log_warn(f"RNNLM dir present but not usable: {e}")
+        if lm is not None:
+            # the device half: weights and the embedding product on `device`
+            model.rnnlm_rescorer = KaldiRnnlmRescorer(lm, device=device)
+            seconds["rnnlm"] = time.perf_counter() - t0
 
     # word-boundary info (reference model.cc:302-306): phone -> position
     # (wbegin/wend/internal/singleton/nonword), used for word alignment

@@ -9,11 +9,12 @@ directories (io/kaldi_loader.py), which converge on the same `NativeModel`
 with an nnet3 AM (`am_override`), an optional i-vector extractor and, for
 split graphs, the HCLr pieces runtime grammars recompose.
 
-A directory that asks for a part not ported yet raises instead of decoding
-without it: online pitch, LM rescoring (`rescore.arpa`, `rnnlm/`, a Kaldi
-`rescore/`), or a native TDNN-F with an i-vector input (at `make_am`).  As
-in the source, a native directory's `ivector/` is not read.  The graph LM
-`g.npz` is read only for rescoring, so it is left unread.
+Rescoring resources load as in the source: the graph LM `g.npz` (the LM
+to subtract), `rescore.arpa` (the big LM to add) and a GRU `rnnlm/` on the
+model's device (runtime/finishing.py rescores with them).  A directory
+that asks for a part not ported yet raises instead of decoding without it:
+online pitch, or a native TDNN-F with an i-vector input (at `make_am`).
+As in the source, a native directory's `ivector/` is not read.
 """
 from __future__ import annotations
 
@@ -28,16 +29,12 @@ import numpy as np
 import torch
 
 from ..graph.builder import Lexicon, Topology
-from ..graph.fst import DecodingGraph, SymbolTable
+from ..graph.fst import DecodingGraph, StdFst, SymbolTable
 from ..models.tdnnf import TdnnfConfig
 from ..ops import features as F
 
 FORMAT_VERSION = 1
 CONFIG_NAME = "vosk_tpu_model.json"
-_UNPORTED = {
-    "rescore.arpa": "ARPA LM rescoring",
-    "rnnlm": "RNNLM rescoring",
-}
 # runtime-grammar decoders kept per model, least recently used dropped first
 # (the source's cache has no bound)
 GRAMMAR_DECODERS = 8
@@ -118,6 +115,10 @@ class NativeModel:
         self.silence_pdfs = silence_pdfs
         self.lexicon = lexicon
         self.topology = topology if topology is not None else Topology()
+        self.g_fst = None        # word-level LM in the graph (rescoring subtracts it)
+        self.rescore_lm = None   # big ARPA / const-ARPA LM (rescoring adds it)
+        self.rnnlm = None        # native GRU RNNLM (mixed 0.5/0.5 with the big LM)
+        self.rnnlm_rescorer = None  # Kaldi rnnlm/ (io/kaldi_rnnlm.py)
         self.word_boundary = None  # phone -> position map (Kaldi layouts only)
         self.global_cmvn_stats = None
         self.ivector = None  # IvectorDirConfig (reference model.cc:247-263)
@@ -241,6 +242,28 @@ def _graph_from_npz(z) -> DecodingGraph:
     })
 
 
+def _save_std_fst(path, fst) -> None:
+    """Store a word-level StdFst (the graph LM G used for rescoring
+    subtraction, role of rescore/G.fst at reference model.cc:310-311)."""
+    rows = [(s, il, ol, w, ns) for s in range(fst.num_states)
+            for il, ol, w, ns in fst.arcs[s]]
+    np.savez(path, arcs=np.asarray(rows, np.float64).reshape(-1, 5),
+             finals=np.asarray(fst.final, np.float32), start=np.int32(fst.start))
+
+
+def _load_std_fst(path) -> StdFst:
+    z = np.load(path)
+    f = StdFst()
+    f.add_states(len(z["finals"]))
+    f.set_start(int(z["start"]))
+    for s, fw in enumerate(z["finals"]):
+        if np.isfinite(fw):
+            f.set_final(s, float(fw))
+    for s, il, ol, w, ns in z["arcs"]:
+        f.add_arc(int(s), int(il), int(ol), float(w), int(ns))
+    return f
+
+
 def save_model(
     path,
     config: ModelConfig,
@@ -252,9 +275,11 @@ def save_model(
     silence_pdfs,
     lexicon: Optional[Lexicon] = None,
     topology: Optional[Topology] = None,
+    g_fst=None,
 ) -> None:
     """Write a native model dir, with the lexicon and topology when given
-    (runtime grammars need both); no graph LM."""
+    (runtime grammars need both) and the graph LM `g_fst` as `g.npz` when
+    given (rescoring subtracts it)."""
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     cfg = dataclasses.asdict(config)
@@ -267,6 +292,8 @@ def save_model(
     (p / CONFIG_NAME).write_text(json.dumps(cfg, indent=2, default=float))
     np.savez(p / "am.npz", **am_params)
     np.savez(p / "graph.npz", **_graph_to_npz(graph))
+    if g_fst is not None:
+        _save_std_fst(p / "g.npz", g_fst)
     np.savez(
         p / "maps.npz",
         phone_of_pdf=np.asarray(phone_of_pdf, np.int32),
@@ -317,12 +344,6 @@ def load_model(path, device="cuda") -> NativeModel:
             f"Folder '{path}' does not contain model files. Make sure you "
             "specified the model path properly."
         )
-    for name, what in _UNPORTED.items():
-        if (p / name).exists():
-            raise NotImplementedError(
-                f"'{path}' ships {name} ({what}), which the port does not "
-                "support yet; it will not decode without it"
-            )
     raw = json.loads(cfg_path.read_text())
     topology = Topology(**raw.get("topology", {}))
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
@@ -340,7 +361,7 @@ def load_model(path, device="cuda") -> NativeModel:
         lexicon = _read_lexicon(p / "lexicon.txt", words, phones,
                                 raw.get("silence_phone", 0),
                                 raw.get("silence_cost", 0.7))
-    return NativeModel(
+    model = NativeModel(
         config=config,
         am_params=dict(np.load(p / "am.npz")),
         graph=_graph_from_npz(np.load(p / "graph.npz")),
@@ -352,3 +373,16 @@ def load_model(path, device="cuda") -> NativeModel:
         lexicon=lexicon,
         topology=topology,
     )
+    # rescoring resources (reference loads rescore/G.fst + G.carpa,
+    # model.cc:308-314): graph LM to subtract + ARPA LM to add
+    if (p / "g.npz").exists():
+        model.g_fst = _load_std_fst(p / "g.npz")
+    if (p / "rescore.arpa").exists():
+        from ..graph.arpa import BackoffLm
+
+        model.rescore_lm = BackoffLm.read_arpa(p / "rescore.arpa", words)
+    if (p / "rnnlm" / "vosk_tpu_rnnlm.json").exists():
+        from ..models.rnnlm import RnnlmModel
+
+        model.rnnlm = RnnlmModel.load(p / "rnnlm", device=model.device)
+    return model

@@ -8,20 +8,23 @@ torch:
   - network graph: config lines (input-node / component-node / output-node
     / dim-range-node) with the descriptor grammar Append/Offset/Sum/Scale/
     Const/ReplaceIndex/Round/IfDefined/Failover
-  - components with a torch forward (what a Kaldi TDNN-F chain AM uses):
-    [NaturalGradient|Fixed]AffineComponent, LinearComponent, TdnnComponent,
-    RectifiedLinear, Sigmoid, Tanh, (Log)Softmax, BatchNorm (test mode),
-    NoOp, Dropout/GeneralDropout/BackpropTruncation (identity at test
-    time), PerElementScale/Offset
+  - components with a torch forward (what a Kaldi TDNN-F chain AM and a
+    TDNN-LSTM RNNLM use): [NaturalGradient|Fixed]AffineComponent,
+    LinearComponent, TdnnComponent, RectifiedLinear, Sigmoid, Tanh,
+    (Log)Softmax, BatchNorm (test mode), NoOp, Dropout/GeneralDropout/
+    BackpropTruncation (identity at test time), PerElementScale/Offset,
+    LstmNonlinearity (the fused LSTM gates)
 
 Weights stay numpy in the parsed components; `net_tensors` carries them to
-a device once (models/am.py `Nnet3Am` does so at construction) and
-`Nnet3.evaluate` takes them with a batch of sequences [B, T, D].
+a device once (models/am.py `Nnet3Am` and io/kaldi_rnnlm.py do so at
+construction) and `Nnet3.evaluate` takes them with a batch of sequences
+[B, T, D].  Acyclic graphs evaluate whole sequences per node; cyclic
+(recurrent) graphs take the source's time-stepped unroll, per (node, t) on
+[B, dim] rows.
 
-Not ported (ROADMAP A11, the RNNLM and x-vector nets): cyclic (recurrent)
-node graphs, LstmNonlinearityComponent and the statistics components; they
-raise NotImplementedError.  Other unknown components raise with their type
-name.
+Not ported (ROADMAP A11, the x-vector nets): the statistics components;
+they raise NotImplementedError.  Other unknown components raise with their
+type name.
 """
 from __future__ import annotations
 
@@ -382,6 +385,57 @@ class IdentityComponent(Component):
         w.write_basic_int(self.dim)
 
 
+class LstmNonlinearityComponent(Component):
+    """Kaldi LstmNonlinearityComponent (nnet-combined-component.cc): the
+    fused LSTM gate nonlinearity with diagonal peephole weights.
+
+    Input [*, 5C] = (i_part, f_part, c_part, o_part, c_prev); params [3, C]
+    = (w_ic, w_fc, w_oc); output [*, 2C] = (c_t, m_t):
+
+      i = sigmoid(i_part + w_ic * c_prev)
+      f = sigmoid(f_part + w_fc * c_prev)
+      c = f * c_prev + i * tanh(c_part)
+      o = sigmoid(o_part + w_oc * c)
+      m = o * tanh(c)
+    """
+
+    type_name = "LstmNonlinearityComponent"
+
+    def __init__(self, params: np.ndarray):
+        assert params.shape[0] == 3
+        self.params = params.astype(np.float32)
+        self.cell_dim = params.shape[1]
+
+    def output_dim(self) -> int:
+        return 2 * self.cell_dim
+
+    def tensors(self, device):
+        return {"w": _t(self.params, device)}
+
+    def forward(self, x, w):
+        C = self.cell_dim
+        w_ic, w_fc, w_oc = w["w"]
+        i_p, f_p, c_p, o_p, c_prev = (x[..., k * C: (k + 1) * C] for k in range(5))
+        i = torch.sigmoid(i_p + w_ic * c_prev)
+        f = torch.sigmoid(f_p + w_fc * c_prev)
+        c = f * c_prev + i * torch.tanh(c_p)
+        o = torch.sigmoid(o_p + w_oc * c)
+        m = o * torch.tanh(c)
+        return torch.cat([c, m], dim=-1)
+
+    @classmethod
+    def read_body(cls, r: BinaryReader, type_name: str):
+        got = skip_until(r, f"</{type_name}>", {"<Params>": "matrix"})
+        params = got.get("<Params>")
+        if params is None:
+            raise KaldiReadError("LstmNonlinearityComponent without <Params>")
+        return cls(np.asarray(params))
+
+    def write_body(self, w: BinaryWriter) -> None:
+        w.write_token("<Params>")
+        w.write_matrix(self.params)
+
+
 class PerElementScaleComponent(Component):
     type_name = "NaturalGradientPerElementScaleComponent"
 
@@ -442,9 +496,8 @@ _IDENTITY = {
     # inference-time identity: clips gradients only during training
     "BackpropTruncationComponent",
 }
-# components of the RNNLM and x-vector nets, which the port does not run yet
+# components of the x-vector nets, which the port does not run yet
 _UNPORTED = {
-    "LstmNonlinearityComponent",
     "StatisticsExtractionComponent",
     "StatisticsPoolingComponent",
 }
@@ -471,9 +524,11 @@ def read_component(r: BinaryReader) -> Component:
         return PerElementScaleComponent.read_body(r, name)
     if name == "PerElementOffsetComponent":
         return PerElementOffsetComponent.read_body(r, name)
+    if name == "LstmNonlinearityComponent":
+        return LstmNonlinearityComponent.read_body(r, name)
     if name in _UNPORTED:
         raise NotImplementedError(
-            f"nnet3 {name} (RNNLM / x-vector nets) is not ported yet (ROADMAP A11)"
+            f"nnet3 {name} (x-vector nets) is not ported yet (ROADMAP A11)"
         )
     raise KaldiReadError(f"unsupported nnet3 component type: {name}")
 
@@ -717,10 +772,12 @@ class Nnet3:
         return self._recurrent
 
     def check_acyclic(self) -> None:
+        """Raise for a cyclic graph where only a feedforward net serves: a
+        streaming AM (the source's context walk never ends on one)."""
         if self.has_recurrence():
             raise NotImplementedError(
-                "recurrent (cyclic) nnet3 graphs are not ported yet (ROADMAP A11)"
-            )
+                "a recurrent (cyclic) nnet3 graph cannot serve as the streaming "
+                "acoustic model; Nnet3.evaluate unrolls it per frame")
 
     def evaluate(self, inputs: Dict[str, torch.Tensor],
                  weights: Dict[str, Dict[str, torch.Tensor]],
@@ -731,8 +788,10 @@ class Nnet3:
         The source's per-sequence evaluation ([T, dim], vmapped over
         channels) on a batch: time indexing is edge-clamped per sequence
         (looped-decodable padding semantics; callers pad the input context
-        as with models/tdnnf)."""
-        self.check_acyclic()
+        as with models/tdnnf).  Cyclic graphs (LSTM recurrence) take the
+        time-stepped path."""
+        if self.has_recurrence():
+            return self._evaluate_recurrent(inputs, weights, output)
         cache: Dict[str, torch.Tensor] = {}
         T = max(int(v.shape[1]) for v in inputs.values())
         B = next(iter(inputs.values())).shape[0]
@@ -796,6 +855,120 @@ class Nnet3:
             raise KaldiReadError(f"cannot evaluate descriptor {d.op}")
 
         return eval_node(output)
+
+    def _evaluate_recurrent(self, inputs: Dict[str, torch.Tensor],
+                            weights: Dict[str, Dict[str, torch.Tensor]],
+                            output: str = "output") -> torch.Tensor:
+        """Time-stepped evaluation for cyclic (recurrent) graphs, the
+        source's backprop-free unroll on [B, dim] rows: each (node, t) is
+        memoized; a back-edge IfDefined(Offset(x, -d)) reads (x, t-d), which
+        is zeros for t < 0 (Kaldi's IfDefined semantics at the sequence
+        start); offsets past the end clamp to the last frame
+        (looped-decodable padding).  The reference evaluates recurrent
+        RNNLMs incrementally the same way (rnnlm-compute-state.cc)."""
+        T = max(int(v.shape[1]) for v in inputs.values())
+        B = next(iter(inputs.values())).shape[0]
+        dev = next(iter(inputs.values())).device
+        vals: Dict[tuple, torch.Tensor] = {}
+        stack: set = set()
+
+        def node_dim(name: str) -> int:
+            nd = self.nodes[name]
+            if nd.kind == "input":
+                return int(inputs[name].shape[2])
+            if nd.kind == "component":
+                return self.components[nd.component].output_dim()
+            return nd.dim
+
+        def eval_node(name: str, t: int) -> torch.Tensor:
+            t = min(t, T - 1)
+            key = (name, t)
+            if key in vals:
+                return vals[key]
+            if key in stack:
+                raise KaldiReadError(
+                    f"recurrent cycle through {name} at t={t} has no "
+                    "negative-offset back-edge")
+            stack.add(key)
+            try:
+                nd = self.nodes[name]
+                if nd.kind == "input":
+                    v = inputs[name]
+                    row = v[:, min(t, v.shape[1] - 1)]
+                elif nd.kind == "component":
+                    x = eval_desc(nd.descriptor, t)
+                    row = self.components[nd.component].forward(
+                        x[:, None, :], weights[nd.component])[:, 0]
+                elif nd.kind == "dim_range":
+                    x = eval_desc(nd.descriptor, t)
+                    row = x[:, nd.dim_offset: nd.dim_offset + nd.dim]
+                elif nd.kind == "output":
+                    row = eval_desc(nd.descriptor, t)
+                else:
+                    raise KaldiReadError(f"cannot evaluate node kind {nd.kind}")
+            finally:
+                stack.discard(key)
+            vals[key] = row
+            return row
+
+        def desc_dim(d: Desc) -> int:
+            if d.op == "node":
+                return node_dim(d.args[0])
+            if d.op == "append":
+                return sum(desc_dim(a) for a in d.args)
+            if d.op in ("offset", "round", "sum", "replace_index", "ifdefined",
+                        "failover"):
+                return desc_dim(d.args[0])
+            if d.op == "scale":
+                return desc_dim(d.args[1])
+            if d.op == "const":
+                return d.args[1]
+            raise KaldiReadError(f"bad desc {d.op}")
+
+        def eval_desc(d: Desc, t: int, defined_only: bool = False):
+            if d.op == "node":
+                return eval_node(d.args[0], t)
+            if d.op == "append":
+                return torch.cat([eval_desc(a, t) for a in d.args], dim=-1)
+            if d.op == "offset":
+                t2 = t + d.args[1]
+                if t2 < 0:
+                    if defined_only:
+                        return None
+                    t2 = 0  # plain Offset clamps; IfDefined handled below
+                return eval_desc(d.args[0], t2, defined_only)
+            if d.op == "sum":
+                out = eval_desc(d.args[0], t)
+                for a in d.args[1:]:
+                    out = out + eval_desc(a, t)
+                return out
+            if d.op == "scale":
+                return d.args[0] * eval_desc(d.args[1], t)
+            if d.op == "const":
+                return torch.full((B, d.args[1]), d.args[0], dtype=torch.float32,
+                                  device=dev)
+            if d.op == "replace_index":
+                if d.args[1] == "t":
+                    return eval_desc(d.args[0], int(d.args[2]))
+                return eval_desc(d.args[0], t)
+            if d.op == "round":
+                mod = d.args[1]
+                return eval_desc(d.args[0], (t // mod) * mod)
+            if d.op == "ifdefined":
+                # zeros when the (time-shifted) dependency is undefined
+                v = eval_desc(d.args[0], t, defined_only=True)
+                if v is None:
+                    return torch.zeros((B, desc_dim(d.args[0])), dtype=torch.float32,
+                                       device=dev)
+                return v
+            if d.op == "failover":
+                v = eval_desc(d.args[0], t, defined_only=True)
+                if v is None:
+                    return eval_desc(d.args[1], t)
+                return v
+            raise KaldiReadError(f"cannot evaluate descriptor {d.op}")
+
+        return torch.stack([eval_node(output, t) for t in range(T)], dim=1)
 
 
 def _desc_to_str(d: Desc) -> str:

@@ -12,7 +12,8 @@ collects per-stream chunk pushes; each `step()` forms one fixed-shape
 -> TDNN-F -> token passing.  The host reads back, once per chunk, only the
 valid-frame counts and the endpoint inputs ([B] each); finishing a stream
 reads that channel's records.  Results are finalized per stream on
-FinishStream and queued as JSON, mirroring vosk_batch_recognizer_*
+FinishStream (runtime/finishing.py, with LM rescoring when the model
+carries it) and queued as JSON, mirroring vosk_batch_recognizer_*
 semantics (vosk_api.h:310-346).
 """
 from __future__ import annotations

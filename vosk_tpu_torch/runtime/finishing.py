@@ -1,15 +1,27 @@
-"""Lattice finishing: decoder records -> n-best word items with posteriors.
+"""Lattice finishing: decoder records -> n-best word items with posteriors
+(and optional LM rescoring).
 
-Port of `vosk_tpu/runtime/finishing.py` without LM rescoring (ROADMAP A15).
+Port of `vosk_tpu/runtime/finishing.py`.  Without rescoring,
 `Finisher.paths` goes through the native library (core/src/lattice.cc via
 runtime/native_lattice.py): MBR for the one-best result, native n-best for
 alternatives; a missing native library raises.  `finish_lattice` and
 `_finish_mbr` are copies of the source's Python path over a built
 `Lattice` (graph/lattice.py, graph/mbr.py): the streaming recognizer's
 windowed lattices and the n-best fallback take it, as in the source.
+
+When the model carries rescoring resources (the graph LM `g_fst` and a big
+ARPA / const-ARPA LM, a native GRU RNNLM or a Kaldi RNNLM), every result
+takes the Python path, as in the source: the lattice is rescored
+(subtract the graph LM, add the big LM or its 0.5/0.5 mixture with the
+RNNLM; reference recognizer.cc:680-705), then scaled, pruned and decoded.
+The LMs are scored on the host; an RNNLM runs on the model's device.
+`rescore_stats` counts the rescored lattices and the host seconds spent
+in rescoring, and gives the size of the last composed lattice (nodes, arcs,
+word arcs).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Tuple
 
 from . import native_lattice
@@ -41,6 +53,18 @@ class Finisher:
         self.model = model
         self.dec = dec
         self.lattice_beam = model.config.lattice_beam
+        self._sub_lm = None
+        self._rnn_rescorer = None
+        self.rescore_stats = {"lattices": 0, "seconds": 0.0, "nodes": 0, "arcs": 0,
+                              "word_arcs": 0}
+
+    @property
+    def rescoring(self) -> bool:
+        model = self.model
+        return model.g_fst is not None and (
+            model.rescore_lm is not None or model.rnnlm is not None
+            or model.rnnlm_rescorer is not None
+        )
 
     def paths(
         self, records: List[dict], frontier, channel: int, n: int,
@@ -60,6 +84,12 @@ class Finisher:
         if not records:
             return []
         model, dec = self.model, self.dec
+        if self.rescoring:
+            from ..graph.lattice import build_lattice
+
+            lat, _ = build_lattice(records, frontier, channel, dec, use_final=use_final,
+                                   init_override=init_override)
+            return self.finish_lattice(lat, n)
         got = None
         if n == 1:
             got = native_lattice.mbr_native(
@@ -112,6 +142,38 @@ class Finisher:
         )
         return self.finish_lattice(lat, n)
 
+    def _rescore(self, lat):
+        """Big-LM rescoring: subtract the graph's G, add the ARPA LM and/or
+        the RNNLM 0.5/0.5 mixture (reference recognizer.cc:680-705)."""
+        from ..graph.arpa import FstLm
+        from ..graph.lattice import rescore_lattice
+
+        model = self.model
+        t0 = time.perf_counter()
+        if self._sub_lm is None:
+            self._sub_lm = FstLm(model.g_fst)
+        add_lm = model.rescore_lm
+        kaldi_rnn = model.rnnlm_rescorer
+        if model.rnnlm is not None or kaldi_rnn is not None:
+            from ..models.rnnlm import MixtureLm, RnnlmRescorer
+
+            if self._rnn_rescorer is None:
+                self._rnn_rescorer = (kaldi_rnn if kaldi_rnn is not None
+                                      else RnnlmRescorer(model.rnnlm))
+            if add_lm is not None:
+                add_lm = MixtureLm([(0.5, add_lm), (0.5, self._rnn_rescorer)])
+            else:
+                add_lm = self._rnn_rescorer
+        lat = rescore_lattice(lat, self._sub_lm, add_lm)
+        if self._rnn_rescorer is not None:
+            self._rnn_rescorer.clear()
+        st = self.rescore_stats
+        st["lattices"] += 1
+        st["seconds"] += time.perf_counter() - t0
+        st["nodes"], st["arcs"] = lat.num_nodes, len(lat.arcs)
+        st["word_arcs"] = sum(1 for a in lat.arcs if a.olabel)
+        return lat
+
     def _finish_mbr(self, lat):
         """One-best items via MBR sausage decoding on the pruned lattice
         (copy of the source's `_finish_mbr`): words and confidences from
@@ -156,12 +218,14 @@ class Finisher:
     def finish_lattice(
         self, lat, n: int
     ) -> List[Tuple[float, List[Tuple[int, int, int, float]]]]:
-        """Prune and extract n-best word items from a built lattice (copy of
-        the source's `finish_lattice` without rescoring); also the entry
-        point for the recognizer's spliced whole-utterance lattices."""
+        """Rescore, prune and extract n-best word items from a built lattice
+        (copy of the source's `finish_lattice`); also the entry point for
+        the recognizer's spliced whole-utterance lattices."""
         from .wordalign import realign_items
 
         model = self.model
+        if self.rescoring:
+            lat = self._rescore(lat)
         # reference applies GraphLatticeScale(0.9) before result extraction
         lat.scale_graph(0.9)
         lat = lat.prune(self.lattice_beam)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rescoring-only]
+    python3 chip_smoke.py [--rescoring-only | --pitch-only]
 
-(`--rescoring-only` builds the kernels and runs phase 12 alone, with no
-result line.)  Phases, each of which raises on failure (the script then exits non-zero
-and prints no result line):
+(`--rescoring-only` / `--pitch-only` build the kernels and run phase 12 /
+13 alone, with no result line.)  Phases, each of which raises on failure
+(the script then exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
      parallel, linked into one .so) and print ptxas's registers, shared
@@ -105,6 +105,29 @@ and prints no result line):
      directory of the TDNN-F with g.npz, rescore.arpa and a GRU rnnlm/
      (1024/1024): one 3 s stream, and the GRU step on the card against
      the CPU (under 1e-3).
+ 13. (run after 12) online pitch and speaker identification: (a) a Kaldi V2
+     directory from the port's exporter with conf/pitch.conf
+     (--sample-frequency=16000, as egs/aishell/s5's): the bench TDNN-F
+     with a 43-dim input (40 MFCC-hires + 3 pitch, aishell's chain
+     input), 43/512/96/192/6008, 11 layers, subsample 3, on phase 12's
+     200,000-state graph (the cut, for load time), and no i-vector (a
+     second cut); Model(dir) + KaldiRecognizer stream 10.5 s of a seeded
+     voiced signal (harmonics of an f0 gliding over 100-300 Hz, noise at
+     10 dB SNR) in 0.2 s pieces, words on, a PartialResult every second,
+     counts zeroed just before: both frame-step kernels must launch, the
+     pitch state must live on the card, the plain versions must give
+     identical JSON, and the stream's pitch features on the card must
+     match the CPU's (utils/pitchcheck.py: lags equal off ties, POV
+     feature 1e-3, log pitch and delta 1e-4, MFCC 1e-3); the pitch stage's
+     device events for one 0.2 s piece at B = 1 and 32; then BatchModel
+     serves 8 x 3 s; (b) a Kaldi speaker dir with the node graph of the
+     VoxCeleb x-vector recipe at its widths (input 30, relu-batchnorm 512
+     x 4 and 1500, the mean+stddev stats pair, tdnn6.affine 3000 -> 512,
+     mean.vec, transform.mat 200 x 512): SpkModel(dir) on the card, and
+     KaldiRecognizer(model, 16000, spk) on (a)'s model streams the signal,
+     counts zeroed just before: FinalResult must carry 200 finite `spk`
+     values and spk_frames >= 50, and the x-vector must match the same
+     model on the CPU within 1e-4; FinalResult time with and without it.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -1101,6 +1124,7 @@ def phase_kaldi(torch, tmp):
         f"{r._iv_frames_weighted} frames; identical JSON with the plain versions "
         f"({len(outs)} results)")
     log("kaldi streaming stages (host s): " + stage_line(t["stages"]))
+    STAGES["kaldi"] = t["stages"]
     log("kaldi streaming result: " + json.dumps(json.loads(outs[-1])["text"][:60]))
     shapes = (dec.K * dec.M, dec.K)
     del model, nm, am, dec, r, t  # the batch phase's peak memory is its own
@@ -1192,6 +1216,7 @@ def phase_split(torch, tmp):
         runs["main"]["dec"], runs["grammar"]["dec"])
 
 
+STAGES = {}  # a phase's streaming stage seconds, for a later phase's comparison
 RESCORE_STATES = 200_000  # phase 12's graph: the one cut, for load time
 HISTORIES = 64           # phase 12's card-vs-CPU RNNLM histories
 
@@ -1471,6 +1496,245 @@ def phase_rescoring(torch, tmp, states=RESCORE_STATES, histories=HISTORIES,
     return out
 
 
+PITCH_FEAT_DIM = 43  # phase 13's AM input: 40 MFCC-hires + 3 pitch (aishell chain)
+
+
+def voiced_pcm(seconds, seed, rate=16000):
+    """Phase 13's signal, so the tracker has a pitch to follow: harmonics
+    1-5 (amplitude 1/k) of an f0 gliding over 100-300 Hz (one cycle in 3.3
+    s), white noise at 10 dB SNR, peak 8000; int16 samples."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    ph = np.cumsum(2 * np.pi * (200 + 100 * np.sin(2 * np.pi * 0.3 * t)) / rate)
+    x = sum(np.sin(k * ph) / k for k in range(1, 6))
+    x = x + rng.standard_normal(len(t)) * np.std(x) / np.sqrt(10)
+    return np.round(x / np.abs(x).max() * 8000).astype(np.int16)
+
+
+def pitch_stage_events(torch, ex, B, seed):
+    """The pitch tracker's work for one 0.2 s piece at batch B: the
+    arguments of its frame_features call on the 4th piece of B voiced
+    streams, then that call alone under torch.profiler.  Returns (device
+    events, device us, host ms of one call over 10)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    S = 3200
+    audio = np.stack([voiced_pcm(0.8, seed + b) for b in range(B)]).astype(np.float32)
+    frame_features = ex.pitch.frame_features
+    seen = []
+    ex.pitch.frame_features = lambda *a: seen.append(a) or frame_features(*a)
+    try:
+        st = ex.init_stream_state(B, S)
+        for c in range(4):
+            st, _, _ = ex.extract_chunk(st, torch.from_numpy(
+                np.ascontiguousarray(audio[:, c * S:(c + 1) * S])).to(ex.device))
+    finally:
+        del ex.pitch.frame_features
+    args = seen[-1]
+    frame_features(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame_features(*args)
+        torch.cuda.synchronize()
+    dev = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler recorded no device event for the pitch stage")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        frame_features(*args)
+    torch.cuda.synchronize()
+    return len(dev), sum(ev.time_range.elapsed_us() for ev in dev), \
+        (time.perf_counter() - t0) / 10 * 1e3
+
+
+def phase_pitch(torch, tmp):
+    """Phase 13 (a): a Kaldi V2 dir with conf/pitch.conf (the port's
+    exporter; the bench TDNN-F at 43/512/96/192/6008, 11 layers; the
+    realistic 200,000-state graph of phase 12; no i-vector): Model(dir) +
+    KaldiRecognizer stream 10.5 s of a voiced signal, counts zeroed just
+    before (both frame-step kernels, pitch state on the card, identical
+    JSON with the plain versions); the stream's pitch features on the card
+    against the CPU (utils/pitchcheck.py); the pitch stage's device events
+    for one 0.2 s piece at B = 1 and 32; then BatchModel serves 8 x 3 s.
+    Returns (streaming launches, batch launches, the loaded model, the
+    signal, numbers for the kernel line)."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
+    from vosk_tpu_torch.ops import frame_step
+    from vosk_tpu_torch.ops.features import FeatureExtractor
+    from vosk_tpu_torch.utils import benchdata, kaldidata, pitchcheck
+
+    t0 = time.perf_counter()
+    m = benchdata.make_bench_model(num_states=RESCORE_STATES, seed=SEED, device="cpu",
+                                   feat_dim=PITCH_FEAT_DIM)
+    kaldidata.one_phone_per_pdf(m)
+    path = Path(tmp) / "kaldi_pitch"
+    export_kaldi_dir(m, path)
+    kaldidata.write_pitch_conf(path)
+    t_export = time.perf_counter() - t0
+    del m
+    gc.collect()
+    t0 = time.perf_counter()
+    model = vosk_tpu_torch.Model(str(path), device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    nm = model._model
+    t0 = time.perf_counter()
+    vosk_tpu_torch.KaldiRecognizer(model, 16000)  # builds the shared decoder
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    dec = nm.shared_decoder()
+    ex = nm.feature_extractor()
+    log(f"pitch: export (43-dim nnet3 AM + {nm.graph.num_states}-state graph + conf/pitch.conf) "
+        f"{t_export:.3f} s; Model load {t_load:.3f} s (by stage "
+        f"{json.dumps({k: round(v, 3) for k, v in nm.load_seconds.items()})}); first "
+        f"KaldiRecognizer {t_first:.3f} s; pitch_opts {json.dumps(nm.config.pitch_opts)}; "
+        f"features {ex.base_dim} + 3 pitch, lookahead {ex.flush_pad_samples} samples")
+    if nm.config.pitch_opts is None or ex.dim != PITCH_FEAT_DIM or nm.make_am().feat_dim != ex.dim:
+        raise AssertionError("the pitch dir did not load its pitch config")
+
+    audio = voiced_pcm(10.5, SEED + 20)
+    pcm = audio.astype("<i2").tobytes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # every kernel count, just before the main path
+    outs, t = stream_long(model, pcm, 16000)
+    torch.cuda.synchronize()
+    launches = read_counts("the pitch streaming path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r = t["rec"]
+    if not all(v.is_cuda for v in r._feat_state["pitch"].values()):
+        raise AssertionError("the pitch tracker's state is not on the card")
+    if int(r._feat_state["pitch"]["n_frames"][0]) <= 0:
+        raise AssertionError("the pitch tracker saw no frame")
+    dec.step_ops = frame_step.PLAIN
+    try:
+        plain_outs, _ = stream_long(model, pcm, 16000)
+    finally:
+        dec.step_ops = frame_step.KERNELS
+    if plain_outs != outs:
+        raise AssertionError("the pitch stream differs between the kernels and the plain "
+                             "versions")
+    cpu = FeatureExtractor(ex.opts, pitch_opts=ex.pitch.opts, device="cpu")
+    t0 = time.perf_counter()
+    feats_card = pitchcheck.stream(ex, audio[None].astype(np.float32), 3200)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats_cpu = pitchcheck.stream(cpu, audio[None].astype(np.float32), 3200)
+    t_cpu = time.perf_counter() - t0
+    check = pitchcheck.compare(feats_card, feats_cpu)
+    hz = 1.0 / ex.pitch.lags_s[feats_card[0][1]]
+    a = t["accept"]
+    feat_s = t["stages"]["features"]["seconds"]
+    ref = STAGES.get("kaldi", {}).get("features", {}).get("seconds")
+    log(f"pitch streaming 10.5 s voiced (B=1, folded {t['folded']} frames): AcceptWaveform "
+        f"p50 {np.median(a) * 1e3:.3f} ms max {a.max() * 1e3:.3f} ms ({len(a)} pieces); "
+        f"PartialResult p50 {np.median(t['partial']) * 1e3:.3f} ms; FinalResult "
+        f"{t['final'] * 1e3:.3f} ms; features stage {feat_s:.4f} host s against phase 9's "
+        f"{ref if ref is None else round(ref, 4)} s (no pitch); peak device memory "
+        f"{peak:.3f} GiB; {count_line(launches)}; identical JSON with the plain versions "
+        f"({len(outs)} results); text {json.dumps(json.loads(outs[-1])['text'][:60])}")
+    log("pitch streaming stages (host s): " + stage_line(t["stages"]))
+    log(f"pitch features card vs CPU over the stream ({json.dumps(check)}; bounds: lags equal "
+        f"off ties < {pitchcheck.TIE}, POV feature {pitchcheck.POV_ATOL}, log pitch and delta "
+        f"{pitchcheck.PITCH_ATOL}, MFCC {pitchcheck.BASE_ATOL}); tracked f0 p10/p50/p90 "
+        f"{np.percentile(hz, 10):.1f}/{np.percentile(hz, 50):.1f}/{np.percentile(hz, 90):.1f} Hz "
+        f"(signal 100-300 Hz); extractor alone over 10.5 s: card {t_card:.3f} s, CPU "
+        f"{t_cpu:.3f} s")
+    events = {}
+    for b in (1, B):
+        n, us, ms = pitch_stage_events(torch, ex, b, SEED + 21)
+        events[f"b{b}"] = dict(events=n, device_us=us, host_ms=ms)
+    log(f"pitch stage, one 0.2 s piece ({ex.stream_max_frames(3200)} frames), profiled: "
+        + json.dumps(events))
+    info = dict(check=check, events=events, accept_p50_ms=float(np.median(a) * 1e3),
+                features_s=feat_s)
+    del dec, r, t, ex, cpu
+    gc.collect()
+
+    t0 = time.perf_counter()
+    bm = vosk_tpu_torch.BatchModel(str(path), max_batch_size=B, device="cuda")
+    torch.cuda.synchronize()
+    log(f"pitch batch: BatchModel load {time.perf_counter() - t0:.3f} s")
+    batch_launches = phase_serving(torch, bm)
+    del bm
+    gc.collect()
+    return launches, batch_launches, model, audio, info
+
+
+def phase_speaker(torch, tmp, model, audio):
+    """Phase 13 (b): a Kaldi speaker dir with the node graph of the
+    VoxCeleb x-vector recipe at its widths (30 / 512 x 4 / 1500, stats
+    mean+stddev, tdnn6.affine 3000 -> 512, LDA 200), written by the port's
+    nnet3 writer; SpkModel(dir) on the card; KaldiRecognizer(model, 16000,
+    spk) on phase 13 (a)'s model streams the 10.5 s signal, counts zeroed
+    just before: FinalResult must carry 200 finite `spk` values and
+    spk_frames >= 50, and the x-vector must match the same KaldiSpkModel
+    on the CPU within 1e-4; FinalResult time with and without the speaker
+    model.  Returns the path's launches."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.models.xvector import SpkModel, extract_xvector_for_recognizer
+    from vosk_tpu_torch.utils import kaldidata
+
+    path = Path(tmp) / "kaldi_spk"
+    t0 = time.perf_counter()
+    info = kaldidata.write_kaldi_xvector_dir(path, seed=SEED)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spk = vosk_tpu_torch.SpkModel(str(path))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if not all(t.is_cuda for w in spk._model.weights.values() for t in w.values()):
+        raise AssertionError("the x-vector net's weights are not on the card")
+    pcm = audio.astype("<i2").tobytes()
+    piece = 6400
+
+    def run(with_spk):
+        args = (model, 16000, spk) if with_spk else (model, 16000)
+        rec = vosk_tpu_torch.KaldiRecognizer(*args)
+        for off in range(0, len(pcm), piece):
+            rec.AcceptWaveform(pcm[off: off + piece])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = json.loads(rec.FinalResult())
+        return out, time.perf_counter() - t0, rec
+
+    torch.cuda.synchronize()
+    zero_counts()  # every kernel count, just before the path
+    res, final_spk, rec = run(True)
+    launches = read_counts("the speaker stream")
+    vec = res.get("spk")
+    if not (vec is not None and len(vec) == 200 and np.all(np.isfinite(vec))
+            and res.get("spk_frames", 0) >= 50):
+        raise AssertionError(f"FinalResult carries no usable x-vector: "
+                             f"{ {k: v for k, v in res.items() if k != 'spk'} }")
+    r = rec._rec
+    r.spk_model = SpkModel.load(path, device="cpu")
+    cpu_vec, cpu_frames = extract_xvector_for_recognizer(r)
+    err = float(np.abs(np.asarray(vec) - np.asarray(cpu_vec)).max())
+    if cpu_frames != res["spk_frames"] or not err <= 1e-4:
+        raise AssertionError(f"the x-vector on the card disagrees with the CPU: {err}, frames "
+                             f"{res['spk_frames']} vs {cpu_frames}")
+    spk_s = r.metrics.total_s.get("speaker", 0.0)
+    _, final_plain, _ = run(False)
+    log(f"speaker: Kaldi x-vector dir ({json.dumps(info)}) written in {t_write:.3f} s, "
+        f"SpkModel load {t_load:.3f} s; 10.5 s voiced stream with the speaker model: "
+        f"spk_frames {res['spk_frames']}, |spk| {np.linalg.norm(vec):.4f} (sqrt 200 = "
+        f"{np.sqrt(200):.4f}); card vs CPU x-vector max abs diff {err:.3e} (bound 1e-4, "
+        f"after length normalization, 6-decimal JSON); FinalResult {final_spk * 1e3:.3f} ms "
+        f"with the speaker model ({spk_s * 1e3:.3f} ms of it the speaker stage) against "
+        f"{final_plain * 1e3:.3f} ms without; {count_line(launches)}")
+    return launches, dict(err=err, final_ms=final_spk * 1e3, final_plain_ms=final_plain * 1e3,
+                          speaker_ms=spk_s * 1e3, spk_frames=res["spk_frames"])
+
+
 def main() -> int:
     import torch
 
@@ -1506,6 +1770,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             log(json.dumps(phase_rescoring(torch, tmp)))
         return 0
+    if sys.argv[1:] == ["--pitch-only"]:  # phase 13 alone, for iterating on it
+        with tempfile.TemporaryDirectory() as tmp:
+            *_, model, audio, info = phase_pitch(torch, tmp)
+            log(json.dumps([info, phase_speaker(torch, tmp, model, audio)]))
+        return 0
     times, max_err = phase_kernel(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         bm = phase_model(torch, dev, tmp)
@@ -1540,11 +1809,16 @@ def main() -> int:
             fs_times[key] = phase_frame_step(torch, key, d, *real_frame(torch, d, P, seed))
         rescoring = phase_rescoring(torch, tmp)
         rnnlm = {k: rescoring.pop(k) for k in ("rnnlm", "gru")}
+        launches_pitch, launches_pitch_batch, pitch_model, voiced, pitch_info = phase_pitch(
+            torch, tmp)
+        launches_speaker, speaker_info = phase_speaker(torch, tmp, pitch_model, voiced)
+        del pitch_model
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
              "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
              "split": launches_split, "grammar": launches_grammar, **launches_v3,
-             **rescoring}
+             **rescoring, "pitch": launches_pitch, "pitch_batch": launches_pitch_batch,
+             "speaker": launches_speaker}
     gather_times = {**b1, **kaldi_times, **split_times, **v3_times}
     kernels = [{
         "name": "gather_rows",
@@ -1594,6 +1868,8 @@ def main() -> int:
             "profiled_launches_per_frame": sum(v for k, v in profile.items() if name in k),
         })
     log("rescoring RNNLM (torch ops, no hand kernel): " + json.dumps(rnnlm))
+    log("pitch and x-vector (torch ops, no hand kernel): " + json.dumps(
+        {"pitch": pitch_info, "speaker": speaker_info}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

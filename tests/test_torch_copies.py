@@ -693,3 +693,97 @@ def test_kaldi_word_boundary_and_conf_copies(tmp_path):
     assert kaldi_loader._frame_opts(raw) == j_kl._frame_opts(raw)
     assert kaldi_loader._mel_opts(raw) == j_kl._mel_opts(raw)
     assert kaldi_loader.is_kaldi_model_dir(tmp_path) == j_kl.is_kaldi_model_dir(tmp_path)
+
+
+# ---- the pitch and speaker slice: the pitch tables, the pitch-conf key
+# map, the statistics components' readers and writers, the speaker-dir
+# exporter
+
+
+@pytest.mark.parametrize("opts", [{}, {"min_f0": 70.0, "max_f0": 330.0, "penalty_factor": 0.2},
+                                  {"sample_rate": 8000.0, "mean_window": 51}])
+def test_pitch_tables_copy(opts):
+    from vosk_tpu.ops import pitch as j_pitch
+    from vosk_tpu_torch.ops import pitch
+
+    assert dataclasses.asdict(pitch.PitchOptions(**opts)) == dataclasses.asdict(
+        j_pitch.PitchOptions(**opts))
+    t = pitch.StreamingPitch(pitch.PitchOptions(**opts), device="cpu")
+    j = j_pitch.StreamingPitch(j_pitch.PitchOptions(**opts))
+    for k in ("R", "sh16", "ws16", "sh4", "ws4", "min_lag", "max_lag", "L", "MW", "W16", "la16"):
+        assert getattr(t, k) == getattr(j, k), k
+    for k in ("fir", "lags_s", "neg_log_lags", "trans", "lag_bias"):
+        a, b = getattr(t, k), getattr(j, k)
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    np.testing.assert_array_equal(t._trans.numpy(), j.trans)
+
+
+def test_pitch_conf_copy(kaldi_dirs, tmp_path):
+    import shutil
+
+    from vosk_tpu.io.kaldi_loader import load_kaldi_model as j_load
+    from vosk_tpu_torch.io.kaldi_loader import load_kaldi_model
+
+    path = tmp_path / "pitch"
+    shutil.copytree(kaldi_dirs / "j_hclg", path)
+    (path / "conf" / "pitch.conf").write_text(
+        "--sample-frequency=16000\n--min-f0=60\n--max-f0=380\n--penalty-factor=0.05\n"
+        "--nccf-ballast=5000\n--resample-frequency=4000\n--frame-shift=10\n"
+        "--frame-length=25\n--delta-pitch=0.005\n")
+    a, b = load_kaldi_model(path, device="cpu"), j_load(path)
+    assert a.config.pitch_opts == b.config.pitch_opts and len(a.config.pitch_opts) == 7
+    assert dataclasses.asdict(a.config) == dataclasses.asdict(b.config)
+
+
+def test_statistics_components_io_copy():
+    import io as _io
+
+    from vosk_tpu.io import kaldiio as j_kio
+    from vosk_tpu.io import nnet3 as j3
+    from vosk_tpu_torch.io import kaldiio
+    from vosk_tpu_torch.io import nnet3 as t3
+
+    for args_ex, args_pool in (((7, 1, 1, True), (15, 1, 0, 10000, 0, True, 1e-10)),
+                               ((3, 2, 3, False), (4, 2, -30, 30, 2, False, 0.5))):
+        blobs = []
+        for mod, kio in ((t3, kaldiio), (j3, j_kio)):
+            buf = _io.BytesIO()
+            w = kio.BinaryWriter(buf)
+            mod.StatisticsExtractionComponent(*args_ex).write(w)
+            mod.StatisticsPoolingComponent(*args_pool).write(w)
+            blobs.append(buf.getvalue())
+        assert blobs[0] == blobs[1]
+        for mod, kio in ((t3, kaldiio), (j3, j_kio)):
+            r = kio.BinaryReader(_io.BufferedReader(_io.BytesIO(blobs[0])))
+            ex, pool = mod.read_component(r), mod.read_component(r)
+            assert (ex.input_dim, ex.input_period, ex.output_period,
+                    ex.include_variance) == args_ex
+            assert (pool.input_dim, pool.input_period, pool.left_context, pool.right_context,
+                    pool.num_log_count, pool.output_stddevs) == args_pool[:6]
+            assert pool.variance_floor == pytest.approx(args_pool[6], rel=1e-7)
+            assert (ex.output_dim(), pool.output_dim()) == (1 + args_ex[0] * (
+                2 if args_ex[3] else 1), args_pool[4] + args_pool[0] - 1)
+
+
+def test_export_kaldi_spk_model_copy(tmp_path):
+    from vosk_tpu.models import xvector as jx
+    from vosk_tpu_torch.models import xvector as tx
+
+    cfg = dict(feat_dim=12, hidden_dim=10, embed_dim=6, num_layers=3, context=1)
+    params = tx.init_xvector_params(tx.XvectorConfig(**cfg), seed=4)
+    jparams = jx.init_xvector_params(jx.XvectorConfig(**cfg), seed=4)
+    assert params.keys() == jparams.keys()
+    for k in params:
+        np.testing.assert_array_equal(params[k], jparams[k])
+    rng = np.random.default_rng(2)
+    mean, transform = rng.standard_normal(6).astype(np.float32), rng.standard_normal(
+        (4, 6)).astype(np.float32)
+    tx.export_kaldi_spk_model(tx.SpkModel(tx.XvectorConfig(**cfg), params, mean, transform,
+                                          device="cpu"), tmp_path / "t")
+    jx.export_kaldi_spk_model(jx.SpkModel(jx.XvectorConfig(**cfg), jparams, mean, transform),
+                              tmp_path / "j")
+    files = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "t").iterdir()) and len(files) == 4
+    for f in files:
+        assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes(), f

@@ -534,3 +534,63 @@ def test_rnnlms_on_card_match_cpu(cuda_device, tmp_path):
         (h, lp), (hc, lpc) = g_card.step(h, w), g_cpu.step(hc, w)
         assert torch.allclose(lp.cpu(), lpc, rtol=1e-4, atol=1e-4)
     assert h.is_cuda and g_card.params["embed"].is_cuda
+
+
+def _glide(seconds, B, seed):
+    """B rows of a voiced signal: harmonics of an f0 gliding over 100-300 Hz
+    with noise at about 10 dB SNR."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    out = []
+    for b in range(B):
+        f0 = 200 + 100 * np.sin(2 * np.pi * (0.3 + 0.1 * b) * t)
+        ph = np.cumsum(2 * np.pi * f0 / 16000)
+        x = sum(np.sin(k * ph) / k for k in range(1, 6)) * 2000
+        out.append(x + rng.standard_normal(len(t)) * np.std(x) / np.sqrt(10))
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_pitch_on_card_matches_cpu(cuda_device, B):
+    """The MFCC + pitch extractor on the card against the CPU, streamed in
+    0.2 s chunks, held as utils/pitchcheck.py states (lags equal off ties,
+    POV feature 1e-3, log pitch and delta 1e-4, MFCC 1e-3); the tracker's
+    state stays on the card."""
+    from vosk_tpu_torch.ops.features import FeatureExtractor, FrameOptions, MelOptions, \
+        MfccOptions
+    from vosk_tpu_torch.utils import pitchcheck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = MfccOptions(frame_opts=FrameOptions(dither=0.0),
+                       mel_opts=MelOptions(num_bins=40, low_freq=20.0, high_freq=-400.0),
+                       num_ceps=40, use_energy=False)
+    card = FeatureExtractor(opts, pitch_opts={}, device=cuda_device)
+    cpu = FeatureExtractor(opts, pitch_opts={}, device="cpu")
+    assert all(v.is_cuda for v in card.init_stream_state(B, 3200)["pitch"].values())
+    audio = _glide(3.0, B, seed=B)
+    stats = pitchcheck.compare(pitchcheck.stream(card, audio, 3200),
+                               pitchcheck.stream(cpu, audio, 3200))
+    assert stats["frames"] == B * 298 and stats["pitch_frames"] > 0
+
+
+def test_xvector_on_card_matches_cpu(cuda_device, tmp_path):
+    """A Kaldi x-vector dir with the VoxCeleb recipe's node graph and a
+    native speaker model: the x-vector on the card against the CPU within
+    1e-4 after length normalization (TF32 off)."""
+    from vosk_tpu_torch.models.xvector import SpkModel, XvectorConfig, init_xvector_params
+    from vosk_tpu_torch.utils import kaldidata
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kaldidata.write_kaldi_xvector_dir(tmp_path / "kaldi", seed=1, feat_dim=30,
+                                      layer_dims=(128, 128, 128, 128, 300), embed_dim=64,
+                                      lda_dim=32)
+    cfg = XvectorConfig(feat_dim=30, hidden_dim=64, embed_dim=32, num_layers=3)
+    SpkModel(cfg, init_xvector_params(cfg, seed=2), np.zeros(32, np.float32),
+             np.eye(32, dtype=np.float32), device="cpu").save(tmp_path / "native")
+    feats = np.random.default_rng(3).standard_normal((400, 30)).astype(np.float32)
+    for name in ("kaldi", "native"):
+        card = SpkModel.load(tmp_path / name, device=cuda_device)
+        cpu = SpkModel.load(tmp_path / name, device="cpu")
+        got, want = card.extract(feats), cpu.extract(feats)
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -7,6 +7,8 @@ streaming and offline formulations, and `log` on near-empty mel bands
 amplifies that; frame counts, masks and the sample ring must match
 exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -52,12 +54,28 @@ def test_streaming_chunks_match(kind):
 
 
 def test_pitch_model_raises():
+    """A model with pitch options builds the source's extractor (3 pitch
+    dims after the base ones, the same lookahead; it raised before the
+    pitch slice); pitch options the tracker cannot take raise, as in the
+    source.  Pitch parity: tests/test_torch_pitch.py."""
+    from vosk_tpu.io import native as j_native
     from vosk_tpu_torch.io import native
     from vosk_tpu_torch.utils import benchdata
 
     m = benchdata.make_bench_model(num_states=500, num_pdfs=20, hidden=16,
-                                   max_active=100, num_words=10, device="cpu")
-    m.config.pitch_opts = {}
-    with pytest.raises(NotImplementedError):
+                                   max_active=100, num_words=10, device="cpu", feat_dim=43)
+    for opts in ({}, {"min_f0": 70.0, "max_f0": 350.0}):
+        m.config.pitch_opts = opts
+        t = native.NativeModel(m.config, m.am_params, m.graph, m.words, m.phones,
+                               m.phone_of_pdf, m.silence_pdfs, device="cpu").feature_extractor()
+        j = j_native.NativeModel(m.config, m.am_params, m.graph, m.words, m.phones, None,
+                                 m.phone_of_pdf, m.silence_pdfs,
+                                 j_native.Topology()).feature_extractor()
+        assert (t.dim, t.base_dim, t.flush_pad_samples) == (j.dim, j.base_dim,
+                                                            j.flush_pad_samples)
+        assert t.dim == 43 == m.am_config.feat_dim
+        assert dataclasses.asdict(t.pitch.opts) == dataclasses.asdict(j.pitch.opts)
+    m.config.pitch_opts = {"resample_rate": 3000.0}
+    with pytest.raises(ValueError):
         native.NativeModel(m.config, m.am_params, m.graph, m.words, m.phones,
-                           m.phone_of_pdf, m.silence_pdfs, device="cpu")
+                           m.phone_of_pdf, m.silence_pdfs, device="cpu").feature_extractor()

@@ -10,6 +10,7 @@ get the same PCM in the same pieces; every result must have identical
 text, words, starts and ends, and confidences within 1e-3 (the AMs differ
 at float rounding).
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -265,17 +266,19 @@ def _add_rescoring(path, parts=("rescore", "rnnlm"), seed=0):
     ("no_ivector", FileNotFoundError),
     ("rescore", None),
     ("rnnlm", None),
-    ("pitch", NotImplementedError),
+    ("pitch", None),
 ])
 def test_unported_or_missing_parts_raise(dirs, tmp_path, change, error):
-    """A missing ivector/ and a pitch.conf raise; rescore/ and rnnlm/ load
-    as the source loads them (they raised before the rescoring slice)."""
+    """A missing ivector/ raises; rescore/, rnnlm/ and a pitch.conf load as
+    the source loads them (they raised before the rescoring and pitch
+    slices)."""
     broken = tmp_path / "broken"
     shutil.copytree(dirs["ivector"], broken)
     if change == "no_ivector":
         shutil.rmtree(broken / "ivector")
     elif change == "pitch":
-        (broken / "conf" / "pitch.conf").write_text("--sample-frequency=16000\n")
+        (broken / "conf" / "pitch.conf").write_text(
+            "--sample-frequency=16000\n--min-f0=60\n--max-f0=380\n--nccf-ballast=5000\n")
     else:
         _add_rescoring(broken, (change,))
     if error is not None:
@@ -284,6 +287,13 @@ def test_unported_or_missing_parts_raise(dirs, tmp_path, change, error):
         return
     t = vosk_tpu_torch.Model(str(broken), device="cpu")._model
     j = vosk_tpu.Model(str(broken))._model
+    if change == "pitch":
+        assert t.config.pitch_opts == j.config.pitch_opts == {
+            "min_f0": 60.0, "max_f0": 380.0, "nccf_ballast": 5000.0}
+        tx, jx = t.feature_extractor(), j.feature_extractor()
+        assert tx.dim == jx.dim == tx.base_dim + 3
+        assert dataclasses.asdict(tx.pitch.opts) == dataclasses.asdict(jx.pitch.opts)
+        return
     if change == "rescore":
         np.testing.assert_array_equal(t.rescore_lm.lm_states, j.rescore_lm.lm_states)
         assert (t.g_fst.arcs, t.g_fst.final) == (j.g_fst.arcs, j.g_fst.final)

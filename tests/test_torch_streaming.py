@@ -246,9 +246,26 @@ def test_fold_matches_jax(models, alternatives):
     assert text == " ".join(words)
 
 
-def test_spk_model_raises(models):
-    with pytest.raises(NotImplementedError):
+def test_spk_model_raises(models, tmp_path):
+    """A third argument that is neither a SpkModel nor a grammar raises, as
+    in the source; a SpkModel gives the source's spk result (it raised
+    before the speaker slice; parity in tests/test_torch_speaker.py)."""
+    from vosk_tpu.models.xvector import SpkModel, XvectorConfig, init_xvector_params
+
+    with pytest.raises(TypeError):
         vosk_tpu_torch.KaldiRecognizer(models[1], 16000, object())
+    cfg = XvectorConfig(feat_dim=20, hidden_dim=16, embed_dim=8, num_layers=2)
+    SpkModel(cfg, init_xvector_params(cfg, seed=1), np.zeros(8, np.float32),
+             np.eye(8, dtype=np.float32)).save(tmp_path / "spk")
+    pcm = _pcm(_wav(["one", "two", "three", "four"], 60))
+    res = []
+    for mod, m, kw in ((vosk_tpu, models[0], {}), (vosk_tpu_torch, models[1], {"device": "cpu"})):
+        rec = mod.KaldiRecognizer(m, 16000, mod.SpkModel(str(tmp_path / "spk"), **kw))
+        rec.AcceptWaveform(pcm)
+        res.append(json.loads(rec.FinalResult()))
+    want, got = res
+    assert got["text"] == want["text"] and got["spk_frames"] == want["spk_frames"] >= 50
+    np.testing.assert_allclose(got["spk"], want["spk"], rtol=0, atol=1e-4)
 
 
 def test_kaldi_recognizer_decodes_without_jax(toy_dir):

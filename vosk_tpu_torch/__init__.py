@@ -2,15 +2,16 @@
 
 The reference binding's surface (python/vosk/__init__.py) on native and
 Kaldi (V1/V2, nnet3 + i-vectors + HCLG or HCLr/Gr) model directories, with
-LM rescoring where they ship it (a Kaldi rescore/ and rnnlm/; a native
-g.npz, rescore.arpa and GRU rnnlm/):
-streaming recognition through `Model` / `KaldiRecognizer`,
+online pitch where they ship a pitch config and LM rescoring where they
+ship it (a Kaldi rescore/ and rnnlm/; a native g.npz, rescore.arpa and GRU
+rnnlm/): streaming recognition through `Model` / `KaldiRecognizer`,
+speaker identification through `SpkModel` (native or Kaldi x-vector dirs),
 batch serving through `BatchModel` / `BatchRecognizer` (the reference's GPU
 batch pipeline), `SetLogLevel`, `GpuInit` and `GpuThreadInit`, with the
 same method names and JSON results as `vosk_tpu`.  Models live on
-`device` ("cuda" by default).  Not ported yet: `SpkModel` (ROADMAP A11)
-and the model-zoo download.  The JAX package stays the reference; this
-package imports torch and never jax.
+`device` ("cuda" by default).  Not ported yet: the model-zoo download.
+The JAX package stays the reference; this package imports torch and never
+jax.
 """
 from __future__ import annotations
 
@@ -65,11 +66,20 @@ class Model:
         return self._model.find_word(word)
 
 
+class SpkModel:
+    """Speaker identification model (vosk_api.h:30-32): a native or Kaldi
+    x-vector dir, its net on `device`."""
+
+    def __init__(self, model_path, device="cuda"):
+        from .models.xvector import SpkModel as _SpkModel
+
+        self._model = _SpkModel.load(model_path, device=device)
+
+
 class KaldiRecognizer:
     """Streaming recognizer with the reference binding's API
-    (python/vosk/__init__.py:134-183): constructors (model, rate) and
-    (model, rate, grammar_json).  The (model, rate, spk_model) form raises:
-    speaker models are not ported yet."""
+    (python/vosk/__init__.py:134-183): constructors (model, rate),
+    (model, rate, spk_model) and (model, rate, grammar_json)."""
 
     def __init__(self, *args):
         from .runtime.recognizer import Recognizer
@@ -77,12 +87,12 @@ class KaldiRecognizer:
         if len(args) == 2:
             model, rate = args
             self._rec = Recognizer(model._model, float(rate))
+        elif len(args) == 3 and isinstance(args[2], SpkModel):
+            model, rate, spk = args
+            self._rec = Recognizer(model._model, float(rate), spk_model=spk._model)
         elif len(args) == 3 and isinstance(args[2], str):
             model, rate, grammar = args
             self._rec = Recognizer(model._model, float(rate), grammar=grammar)
-        elif len(args) == 3:
-            raise NotImplementedError(
-                "speaker identification (SpkModel) is not ported yet")
         else:
             raise TypeError("Unknown arguments")
 
@@ -97,6 +107,9 @@ class KaldiRecognizer:
 
     def SetNLSML(self, enable_nlsml: bool) -> None:
         self._rec.set_nlsml(enable_nlsml)
+
+    def SetSpkModel(self, spk_model: SpkModel) -> None:
+        self._rec.set_spk_model(spk_model._model)
 
     def AcceptWaveform(self, data) -> int:
         try:

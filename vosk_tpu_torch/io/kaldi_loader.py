@@ -12,14 +12,11 @@ Supported: final.mdl (TransitionModel + the nnet3 components of
 io/nnet3.py), HCLG.fst and split HCLr.fst/Gr.fst lookahead graphs
 (vector/const/NGram formats), words.txt, mfcc/fbank conf, model.conf decode
 options and i-vector silence weighting, global CMVN stats, ivector/
-extractor dirs, word_boundary.int, rescore/ (G.carpa + G.fst) and rnnlm/
-(a Kaldi RNNLM on `device`).  As in the source, a rescore/ or rnnlm/ whose
-files do not parse is skipped with a warning and the model decodes without
-rescoring; carrying a parsed RNNLM to the device is outside that guard, so
-a device error raises.
-
-Not ported, and raising rather than decoding without it: pitch.conf
-(ROADMAP A10).
+extractor dirs, pitch.conf (online pitch, ops/pitch.py), word_boundary.int,
+rescore/ (G.carpa + G.fst) and rnnlm/ (a Kaldi RNNLM on `device`).  As in
+the source, a rescore/ or rnnlm/ whose files do not parse is skipped with
+a warning and the model decodes without rescoring; carrying a parsed RNNLM
+to the device is outside that guard, so a device error raises.
 """
 from __future__ import annotations
 
@@ -56,14 +53,28 @@ def is_kaldi_model_dir(path) -> bool:
     return v2 or v1
 
 
-def _refuse_unported(p: Path, v2: bool) -> None:
-    pitch_conf = (p / "conf" / "pitch.conf") if v2 else (p / "pitch.conf")
-    if pitch_conf.exists():
-        raise NotImplementedError(
-            f"'{p}' ships {pitch_conf.relative_to(p)} (online pitch features), "
-            "which the port does not support yet (ROADMAP A10); it will not "
-            "decode without it"
-        )
+# Kaldi PitchExtractionOptions -> PitchOptions fields (the source's map)
+PITCH_KEYS = {
+    "min-f0": ("min_f0", float),
+    "max-f0": ("max_f0", float),
+    "penalty-factor": ("penalty_factor", float),
+    "nccf-ballast": ("nccf_ballast", float),
+    "resample-frequency": ("resample_rate", float),
+    "frame-shift": ("frame_shift_ms", float),
+    "frame-length": ("frame_length_ms", float),
+}
+
+
+def read_pitch_conf(path) -> dict:
+    """A pitch.conf as PitchOptions keyword arguments (other keys, such as
+    --sample-frequency, are not mapped: the tracker takes the features'
+    rate)."""
+    out = {}
+    for k, v in read_config_file(path).items():
+        if k in PITCH_KEYS:
+            name, conv = PITCH_KEYS[k]
+            out[name] = conv(v)
+    return out
 
 
 def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeModel:
@@ -93,7 +104,6 @@ def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeMod
         gr = p / "Gr.fst"
         disambig_int = p / "disambig_tid.int"
         cmvn_stats = p / "global_cmvn.stats"
-    _refuse_unported(p, v2)
     # host seconds per load stage, kept on the model as `load_seconds`
     seconds = {}
     t0 = time.perf_counter()
@@ -131,6 +141,14 @@ def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeMod
             "is missing"
         )
     seconds["am"] = time.perf_counter() - t0
+
+    # ---- pitch (reference model.cc:265-276 adds Kaldi online pitch when
+    # conf/pitch.conf exists): PitchOptions kwargs for ops/pitch.py
+    pitch_conf = (p / "conf" / "pitch.conf") if v2 else (p / "pitch.conf")
+    pitch_opts = None
+    if pitch_conf.exists():
+        pitch_opts = read_pitch_conf(pitch_conf)
+        log_info(f"Online pitch enabled from {pitch_conf}: {pitch_opts}")
 
     # ---- feature config
     feat_cfg: dict
@@ -215,6 +233,7 @@ def load_kaldi_model(path, max_out: int = 16, device="cuda") -> native.NativeMod
         lattice_beam=opts.lattice_beam,
         acoustic_scale=opts.acoustic_scale,
         frame_shift_seconds=0.01 * opts.frame_subsampling_factor,
+        pitch_opts=pitch_opts,
         **feat_cfg,
     )
 

@@ -11,10 +11,11 @@ split graphs, the HCLr pieces runtime grammars recompose.
 
 Rescoring resources load as in the source: the graph LM `g.npz` (the LM
 to subtract), `rescore.arpa` (the big LM to add) and a GRU `rnnlm/` on the
-model's device (runtime/finishing.py rescores with them).  A directory
-that asks for a part not ported yet raises instead of decoding without it:
-online pitch, or a native TDNN-F with an i-vector input (at `make_am`).
-As in the source, a native directory's `ivector/` is not read.
+model's device (runtime/finishing.py rescores with them).  `pitch_opts`
+adds online pitch to the features (ops/pitch.py).  A native TDNN-F with
+an i-vector input, not ported yet, raises at `make_am` instead of decoding
+without it.  As in the source, a native directory's `ivector/` is not
+read.
 """
 from __future__ import annotations
 
@@ -96,10 +97,6 @@ class NativeModel:
         topology: Optional[Topology] = None,
         am_override=None,
     ):
-        if config.pitch_opts is not None:
-            raise NotImplementedError(
-                "online pitch features are not ported yet (vosk_tpu/ops/pitch.py)"
-            )
         if graph is None:
             raise ValueError("the batch path needs a model with a decoding graph")
         self.config = config
@@ -204,7 +201,7 @@ class NativeModel:
             opts = F.MfccOptions(frame_opts=fo, mel_opts=mel, **self.config.mfcc_opts)
         else:
             opts = F.FbankOptions(frame_opts=fo, mel_opts=mel)
-        return F.FeatureExtractor(opts, device=self.device)
+        return F.FeatureExtractor(opts, pitch_opts=self.config.pitch_opts, device=self.device)
 
     def endpoint_rules(self) -> List[EndpointRule]:
         if self.config.endpoint_rules is None:

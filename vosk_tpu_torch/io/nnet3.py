@@ -8,23 +8,21 @@ torch:
   - network graph: config lines (input-node / component-node / output-node
     / dim-range-node) with the descriptor grammar Append/Offset/Sum/Scale/
     Const/ReplaceIndex/Round/IfDefined/Failover
-  - components with a torch forward (what a Kaldi TDNN-F chain AM and a
-    TDNN-LSTM RNNLM use): [NaturalGradient|Fixed]AffineComponent,
-    LinearComponent, TdnnComponent, RectifiedLinear, Sigmoid, Tanh,
-    (Log)Softmax, BatchNorm (test mode), NoOp, Dropout/GeneralDropout/
-    BackpropTruncation (identity at test time), PerElementScale/Offset,
-    LstmNonlinearity (the fused LSTM gates)
+  - components with a torch forward (what a Kaldi TDNN-F chain AM, a
+    TDNN-LSTM RNNLM and an x-vector net use): [NaturalGradient|Fixed]
+    AffineComponent, LinearComponent, TdnnComponent, RectifiedLinear,
+    Sigmoid, Tanh, (Log)Softmax, BatchNorm (test mode), NoOp, Dropout/
+    GeneralDropout/BackpropTruncation (identity at test time),
+    PerElementScale/Offset, LstmNonlinearity (the fused LSTM gates),
+    StatisticsExtraction/StatisticsPooling (x-vector stats layers, pooled
+    over each whole sequence)
 
 Weights stay numpy in the parsed components; `net_tensors` carries them to
 a device once (models/am.py `Nnet3Am` and io/kaldi_rnnlm.py do so at
 construction) and `Nnet3.evaluate` takes them with a batch of sequences
 [B, T, D].  Acyclic graphs evaluate whole sequences per node; cyclic
 (recurrent) graphs take the source's time-stepped unroll, per (node, t) on
-[B, dim] rows.
-
-Not ported (ROADMAP A11, the x-vector nets): the statistics components;
-they raise NotImplementedError.  Other unknown components raise with their
-type name.
+[B, dim] rows.  Unknown components raise with their type name.
 """
 from __future__ import annotations
 
@@ -488,6 +486,138 @@ class PerElementOffsetComponent(Component):
         w.write_vector(self.offsets)
 
 
+class StatisticsExtractionComponent(Component):
+    """x-vector stats rows: [count 1, x, x*x] per frame (the source's
+    forward, on [B, T, in])."""
+
+    type_name = "StatisticsExtractionComponent"
+
+    def __init__(self, input_dim, input_period, output_period, include_variance):
+        self.input_dim = input_dim
+        self.input_period = input_period
+        self.output_period = output_period
+        self.include_variance = include_variance
+
+    def output_dim(self) -> int:
+        return 1 + self.input_dim * (2 if self.include_variance else 1)
+
+    def forward(self, x, w):
+        count = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+        if self.include_variance:
+            return torch.cat([count, x, x * x], dim=-1)
+        return torch.cat([count, x], dim=-1)
+
+    @classmethod
+    def read_body(cls, r, type_name):
+        got = skip_until(
+            r,
+            f"</{type_name}>",
+            {
+                "<InputDim>": "int",
+                "<InputPeriod>": "int",
+                "<OutputPeriod>": "int",
+                "<IncludeVarinance>": "bool",  # sic — Kaldi's historical typo
+                "<IncludeVariance>": "bool",
+            },
+        )
+        return cls(
+            int(got["<InputDim>"]),
+            int(got.get("<InputPeriod>", 1)),
+            int(got.get("<OutputPeriod>", 1)),
+            bool(got.get("<IncludeVarinance>", got.get("<IncludeVariance>", True))),
+        )
+
+    def write_body(self, w):
+        w.write_token("<InputDim>")
+        w.write_basic_int(self.input_dim)
+        w.write_token("<InputPeriod>")
+        w.write_basic_int(self.input_period)
+        w.write_token("<OutputPeriod>")
+        w.write_basic_int(self.output_period)
+        w.write_token("<IncludeVarinance>")
+        w.write_bool(self.include_variance)
+
+
+class StatisticsPoolingComponent(Component):
+    """Pools stats rows over each whole sequence, as the source's x-vector
+    path does: [B, T, 1+d(+d)] -> [B, 1, out] = (num_log_count copies of
+    log count, mean, stddev floored at `variance_floor`), the count floored
+    at 1.  Downstream descriptors then see one row per sequence, as the
+    source's [T_out, out] for one sequence."""
+
+    type_name = "StatisticsPoolingComponent"
+
+    def __init__(self, input_dim, input_period, left_context, right_context,
+                 num_log_count, output_stddevs, variance_floor=1e-10):
+        self.input_dim = input_dim
+        self.input_period = input_period
+        self.left_context = left_context
+        self.right_context = right_context
+        self.num_log_count = num_log_count
+        self.output_stddevs = output_stddevs
+        self.variance_floor = variance_floor
+
+    def output_dim(self) -> int:
+        return self.num_log_count + (self.input_dim - 1)
+
+    def forward(self, x, w):
+        summed = x.sum(dim=1, keepdim=True)  # [B, 1, in]
+        count = torch.clamp(summed[..., :1], min=1.0)
+        rest = summed[..., 1:] / count
+        d = (x.shape[-1] - 1) // 2
+        out = []
+        if self.num_log_count:
+            out.append(torch.log(count).expand(-1, -1, self.num_log_count))
+        if self.output_stddevs:
+            mean = rest[..., :d]
+            var = torch.clamp(rest[..., d:] - mean * mean, min=self.variance_floor)
+            out.extend([mean, torch.sqrt(var)])
+        else:
+            out.append(rest)
+        return torch.cat(out, dim=-1)
+
+    @classmethod
+    def read_body(cls, r, type_name):
+        got = skip_until(
+            r,
+            f"</{type_name}>",
+            {
+                "<InputDim>": "int",
+                "<InputPeriod>": "int",
+                "<LeftContext>": "int",
+                "<RightContext>": "int",
+                "<NumLogCountFeatures>": "int",
+                "<OutputStddevs>": "bool",
+                "<VarianceFloor>": "float",
+            },
+        )
+        return cls(
+            int(got["<InputDim>"]),
+            int(got.get("<InputPeriod>", 1)),
+            int(got.get("<LeftContext>", -1000)),
+            int(got.get("<RightContext>", 1000)),
+            int(got.get("<NumLogCountFeatures>", 0)),
+            bool(got.get("<OutputStddevs>", True)),
+            float(got.get("<VarianceFloor>", 1e-10)),
+        )
+
+    def write_body(self, w):
+        w.write_token("<InputDim>")
+        w.write_basic_int(self.input_dim)
+        w.write_token("<InputPeriod>")
+        w.write_basic_int(self.input_period)
+        w.write_token("<LeftContext>")
+        w.write_basic_int(self.left_context)
+        w.write_token("<RightContext>")
+        w.write_basic_int(self.right_context)
+        w.write_token("<NumLogCountFeatures>")
+        w.write_basic_int(self.num_log_count)
+        w.write_token("<OutputStddevs>")
+        w.write_bool(self.output_stddevs)
+        w.write_token("<VarianceFloor>")
+        w.write_basic_float(self.variance_floor)
+
+
 _NONLIN = set(_NONLIN_FN)
 _IDENTITY = {
     "NoOpComponent",
@@ -495,11 +625,6 @@ _IDENTITY = {
     "GeneralDropoutComponent",
     # inference-time identity: clips gradients only during training
     "BackpropTruncationComponent",
-}
-# components of the x-vector nets, which the port does not run yet
-_UNPORTED = {
-    "StatisticsExtractionComponent",
-    "StatisticsPoolingComponent",
 }
 
 
@@ -524,12 +649,12 @@ def read_component(r: BinaryReader) -> Component:
         return PerElementScaleComponent.read_body(r, name)
     if name == "PerElementOffsetComponent":
         return PerElementOffsetComponent.read_body(r, name)
+    if name == "StatisticsExtractionComponent":
+        return StatisticsExtractionComponent.read_body(r, name)
+    if name == "StatisticsPoolingComponent":
+        return StatisticsPoolingComponent.read_body(r, name)
     if name == "LstmNonlinearityComponent":
         return LstmNonlinearityComponent.read_body(r, name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"nnet3 {name} (x-vector nets) is not ported yet (ROADMAP A11)"
-        )
     raise KaldiReadError(f"unsupported nnet3 component type: {name}")
 
 

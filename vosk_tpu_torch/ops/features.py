@@ -10,8 +10,11 @@ Streaming is a carried ring of raw samples + a total-sample counter; each
 fixed-size chunk yields a fixed (masked) number of frames.
 
 The runtime never dithers (the source's runtime passes key=None), so the
-`dither` option is read but not applied.  Online pitch is a later slice
-(io/native.py raises for a model that asks for it).
+`dither` option is read but not applied.  With `pitch_opts` (a model's
+conf/pitch.conf) three online-pitch dims (ops/pitch.py) follow the base
+features and frame emission waits for the pitch lookahead, as in the
+source.  The offline `extract`, `sliding_window_cmn` and `global_cmvn`
+(the speaker branch's features) are ported too.
 """
 from __future__ import annotations
 
@@ -163,9 +166,11 @@ _LOG_FLOOR = 1.1754944e-38  # FLT_MIN, Kaldi's log floor
 
 
 class FeatureExtractor:
-    """MFCC / fbank extractor with precomputed matmul tables on `device`."""
+    """MFCC / fbank extractor with precomputed matmul tables on `device`,
+    with optional online pitch (`pitch_opts`: a PitchOptions or a dict of
+    its fields, the sample rate taken from the frame options)."""
 
-    def __init__(self, opts: MfccOptions | FbankOptions, device="cuda"):
+    def __init__(self, opts: MfccOptions | FbankOptions, pitch_opts=None, device="cuda"):
         self.opts = opts
         self.device = torch.device(device)
         self.is_mfcc = isinstance(opts, MfccOptions)
@@ -188,6 +193,27 @@ class FeatureExtractor:
             self.dim = opts.num_ceps
         else:
             self.dim = opts.mel_opts.num_bins
+        # optional online pitch appended to the base features (3 dims; the
+        # reference adds Kaldi online pitch when conf/pitch.conf exists,
+        # src/model.cc:265-276).  Frame emission is delayed by the pitch
+        # lookahead so features stay chunk-invariant.
+        self.pitch = None
+        self.base_dim = self.dim
+        self._pitch_la = 0
+        if pitch_opts is not None:
+            from .pitch import PitchOptions, StreamingPitch
+
+            if isinstance(pitch_opts, dict):
+                pitch_opts = PitchOptions(sample_rate=fo.samp_freq, **pitch_opts)
+            self.pitch = StreamingPitch(pitch_opts, device=self.device)
+            self.dim += 3
+            self._pitch_la = self.pitch.la16
+
+    @property
+    def flush_pad_samples(self) -> int:
+        """Zeros to append at end of input so lookahead-delayed frames (the
+        pitch tail) are emitted; 0 without pitch."""
+        return self._pitch_la
 
     def _process_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: [..., n, window_size] -> feats [..., n, dim]."""
@@ -226,29 +252,66 @@ class FeatureExtractor:
             mel_e = torch.log(torch.clamp(mel_e, min=_LOG_FLOOR))
         return mel_e
 
-    # ---------------- streaming ----------------
+    # ---------------- offline (whole-utterance) ----------------
 
-    # zeros to append at end of input for lookahead-delayed frames: the
-    # source needs them for pitch only, which the port does not have
-    flush_pad_samples = 0
+    def extract(self, wav) -> torch.Tensor:
+        """wav: [..., num_samples] (array or tensor) -> feats [..., num_frames,
+        dim] on the extractor's device (snip-edges frame count).
+
+        With pitch, the streaming path runs over the whole utterance in one
+        chunk with `flush_pad_samples` trailing zeros, so the frame count is
+        the no-pitch one and any streaming split gives the same features,
+        as in the source."""
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        fo = self.frame_opts
+        N = wav.shape[-1]
+        n = 0 if N < fo.window_size else (N - fo.window_size) // fo.window_shift + 1
+        if n <= 0:
+            return torch.zeros(wav.shape[:-1] + (0, self.dim), dtype=torch.float32,
+                               device=self.device)
+        if self.pitch is not None:
+            squeeze = wav.dim() == 1
+            wav2 = wav[None] if squeeze else wav
+            wavp = torch.nn.functional.pad(wav2, (0, self._pitch_la))
+            st = self.init_stream_state(wavp.shape[0], wavp.shape[1])
+            _, feats, _ = self.extract_chunk(st, wavp)
+            feats = feats[:, :n]
+            return feats[0] if squeeze else feats
+        return self._extract_impl(wav, n)
+
+    def _extract_impl(self, wav, n):
+        fo = self.frame_opts
+        idx = (torch.arange(n, device=wav.device)[:, None] * fo.window_shift
+               + torch.arange(fo.window_size, device=wav.device)[None, :])
+        return self._process_frames(wav[..., idx])  # [..., n, window_size]
+
+    # ---------------- streaming ----------------
 
     def stream_max_frames(self, chunk_samples: int) -> int:
         return chunk_samples // self.frame_opts.window_shift + 1
 
     def init_stream_state(self, batch: int, chunk_samples: int) -> dict:
-        """Carried state: raw-sample ring tail + counters."""
+        """Carried state: raw-sample ring tail + counters (+ the pitch
+        tracker's state under "pitch")."""
         cap = self._tail_cap(chunk_samples)
         z = dict(device=self.device)
-        return {
+        st = {
             "tail": torch.zeros((batch, cap), dtype=torch.float32, **z),
             "tail_len": torch.zeros((batch,), dtype=torch.int32, **z),
             "total_samples": torch.zeros((batch,), dtype=torch.int32, **z),
             "frames_emitted": torch.zeros((batch,), dtype=torch.int32, **z),
         }
+        if self.pitch is not None:
+            st["pitch"] = self.pitch.init_state(batch)
+        return st
 
     def _tail_cap(self, chunk_samples: int) -> int:
         fo = self.frame_opts
         cap = max(fo.window_size + fo.window_shift, chunk_samples + fo.window_size)
+        if self.pitch is not None:
+            # pitch delays frame emission by la16 samples and its FIR needs
+            # W16 samples of retained left context
+            cap += self._pitch_la + self.pitch.W16
         return ((cap + 127) // 128) * 128
 
     def extract_chunk(self, state: dict, chunk: torch.Tensor, n_samples=None):
@@ -284,7 +347,10 @@ class FeatureExtractor:
         buf_len = tail_len + n_s
 
         new_total = total + n_s
-        total_ready = torch.where(new_total < ws, 0, (new_total - ws) // sh + 1)
+        # with pitch, a frame is emitted only once its NCCF lookahead (plus
+        # the decimation FIR's halfwidth) is buffered: chunk-invariance
+        ready = new_total - self._pitch_la
+        total_ready = torch.where(ready < ws, 0, (ready - ws) // sh + 1)
         n_new = (total_ready - emitted).to(torch.int32)  # <= F by construction
 
         # frame f starts at buffer offset (emitted + f) * sh - (new_total - buf_len)
@@ -297,8 +363,20 @@ class FeatureExtractor:
         feats = self._process_frames(frames)
         feats = torch.where(valid[:, :, None], feats, 0.0)
 
-        # new tail: keep samples from (emitted + n_new) * sh onward
+        pitch_state = None
+        if self.pitch is not None:
+            # pitch windows start where the MFCC windows start; the buffer
+            # holds the full lookahead because ready-counting delayed the
+            # frames (start is unclipped so pitch indexes real positions)
+            pitch_state, pfeats = self.pitch.frame_features(
+                state["pitch"], buf, start[:, 0], F, valid)
+            feats = torch.cat([feats, torch.where(valid[:, :, None], pfeats, 0.0)], dim=2)
+
+        # new tail: keep samples from (emitted + n_new) * sh onward (minus
+        # the FIR left margin the next pitch frame's decimation needs)
         consumed_global = (emitted + n_new) * sh
+        if self.pitch is not None:
+            consumed_global = torch.clamp(consumed_global - self.pitch.W16, min=0)
         keep_from = torch.clamp(consumed_global - (new_total - buf_len), 0, cap + S)
         new_tail_len = torch.clamp(buf_len - keep_from, max=cap).to(torch.int32)
         tcol = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
@@ -312,4 +390,51 @@ class FeatureExtractor:
             "total_samples": new_total,
             "frames_emitted": emitted + n_new,
         }
+        if pitch_state is not None:
+            new_state["pitch"] = pitch_state
         return new_state, feats, valid
+
+
+# ---------------- CMVN ----------------
+
+
+def sliding_window_cmn(feats: torch.Tensor, window: int = 300, center: bool = True,
+                       norm_vars: bool = False) -> torch.Tensor:
+    """Sliding-window cepstral mean normalization (Kaldi SlidingWindowCmn
+    with center=true), used for speaker-ID features at reference
+    recognizer.cc:393-397.  feats: [T, D] or [B, T, D], with cumulative
+    sums over time (no loops), as the source's `_swc_single`."""
+    T = feats.shape[-2]
+    dev = feats.device
+    pad = torch.zeros_like(feats[..., :1, :])
+    cs = torch.cat([pad, torch.cumsum(feats, dim=-2)], dim=-2)  # [..., T+1, D]
+    cs2 = torch.cat([pad, torch.cumsum(feats * feats, dim=-2)], dim=-2)
+    t = torch.arange(T, device=dev)
+    if center:
+        lo = torch.clamp(t - window // 2, 0, T)
+        hi = torch.clamp(lo + window, 0, T)
+        lo = torch.where(hi - lo < window, torch.clamp(hi - window, 0, T), lo)
+    else:
+        lo = torch.clamp(t - window + 1, 0, T)
+        hi = t + 1
+    cnt = (hi - lo).to(torch.float32)[:, None]
+    mean = (cs[..., hi, :] - cs[..., lo, :]) / cnt
+    out = feats - mean
+    if norm_vars:
+        var = (cs2[..., hi, :] - cs2[..., lo, :]) / cnt - mean * mean
+        out = out / torch.sqrt(torch.clamp(var, min=1e-10))
+    return out
+
+
+def global_cmvn(feats: torch.Tensor, stats: np.ndarray, norm_vars: bool = False) -> torch.Tensor:
+    """Apply global CMVN from a Kaldi-style stats matrix [2, D+1] (row 0:
+    sums, the count in the last column; row 1: sums of squares), as the
+    source does; the statistics are reduced in numpy, as there."""
+    count = stats[0, -1]
+    mean = stats[0, :-1] / count
+    out = feats - torch.as_tensor(mean, dtype=feats.dtype, device=feats.device)
+    if norm_vars:
+        var = stats[1, :-1] / count - mean * mean
+        out = out / torch.as_tensor(np.sqrt(np.maximum(var, 1e-10)), dtype=feats.dtype,
+                                    device=feats.device)
+    return out

@@ -93,9 +93,13 @@ class BatchPipeline:
     @staticmethod
     def _set_row(state: dict, ch: int, fresh: dict) -> None:
         """Write a one-channel fresh state into row `ch` of the batched
-        state, in place (no other tensor aliases these)."""
+        state, in place (no other tensor aliases these); nested states (the
+        pitch tracker's) row by row too."""
         for k, v in state.items():
-            v[ch] = fresh[k][0]
+            if isinstance(v, dict):
+                BatchPipeline._set_row(v, ch, fresh[k])
+            else:
+                v[ch] = fresh[k][0]
 
     def _reset_channel(self, ch: int) -> None:
         self._set_row(self._feat_state, ch,

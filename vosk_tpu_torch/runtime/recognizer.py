@@ -23,8 +23,13 @@ its decoder (`NativeModel.shared_decoder`), as the reference shares its
 Model.  Runtime grammars recompile L o G from a native model's lexicon, or
 recompose HCLr o G on a split-graph Kaldi model.
 
-Not ported: the speaker (x-vector) branch; a speaker model raises
-(ROADMAP A11).
+With online pitch (a model's pitch.conf), FinalResult flushes the pitch
+lookahead against zeros, as the source does, and the i-vector extractor
+reads the base features without the pitch dims, as Kaldi's
+OnlineNnet2FeaturePipeline feeds it (the source feeds it every dim;
+ROADMAP C).  With a speaker model (`spk_model`, or `set_spk_model` before
+the first audio), the utterance's audio is kept on the host and FinalResult
+adds the source's `spk` x-vector and `spk_frames` (models/xvector.py).
 """
 from __future__ import annotations
 
@@ -67,9 +72,6 @@ class Recognizer:
         grammar: Optional[str] = None,
         spk_model=None,
     ):
-        if spk_model is not None:
-            raise NotImplementedError(
-                "speaker identification (SpkModel) is not ported yet")
         self.model = model
         self.device = model.device
         self.sample_rate = float(sample_rate)
@@ -78,6 +80,7 @@ class Recognizer:
         # and LinearResample on the batch path, batch_recognizer.cc:27-29)
         self.model_rate = float(model.config.sample_rate)
         self._resampler = None
+        self.spk_model = spk_model
 
         self.graph = model.graph
         # the grammar string, once a runtime-grammar graph is built from it
@@ -139,6 +142,7 @@ class Recognizer:
         from ..utils.metrics import StageTimers
 
         self.metrics = StageTimers()
+        self._spk_feats: list = []      # the utterance's audio, for the speaker branch
         self._init_pipeline()
         self.state = State.INITIALIZED
         self.last_result_ = ""
@@ -215,6 +219,11 @@ class Recognizer:
     def set_nlsml(self, v: bool) -> None:
         self.nlsml_ = bool(v)
 
+    def set_spk_model(self, spk_model) -> None:
+        if self.state == State.RUNNING:
+            raise RuntimeError("Can't add speaker model to already running recognizer")
+        self.spk_model = spk_model
+
     # ------------------------------------------------------------ ingest
 
     def accept_waveform(self, data) -> bool:
@@ -243,6 +252,9 @@ class Recognizer:
                 )
             wave = self._resampler.process(wave)
 
+        if self.spk_model is not None:
+            self._spk_feats.append(wave.copy())
+
         buf = np.concatenate([self._pending, wave])
         S = self.chunk_samples
         pos = 0
@@ -269,7 +281,10 @@ class Recognizer:
         ivec = None
         if self.iv is not None:
             with self.metrics.timer("ivector"):
-                self._iv_state = self.iv.update(self._iv_state, feats, fvalid)
+                # the base features: Kaldi's pipeline keeps pitch out of the
+                # i-vector input
+                self._iv_state = self.iv.update(
+                    self._iv_state, feats[..., :self.ex.base_dim], fvalid)
                 ivec = self.iv.current(self._iv_state)
         with self.metrics.timer("acoustic_model"):
             self._am_state, ll, lvalid = self.am.process_chunk(
@@ -441,6 +456,12 @@ class Recognizer:
             if len(tail):
                 self._pending = np.concatenate([self._pending, tail])
             self._resampler.reset()
+        if input_finished and self.ex.flush_pad_samples:
+            # pitch delays frame emission by its lookahead; flush the tail
+            # frames against zeros (end-of-stream silence), like Kaldi's
+            # online pitch at InputFinished
+            self._pending = np.concatenate(
+                [self._pending, np.zeros(self.ex.flush_pad_samples, np.float32)])
         if len(self._pending) > 0:
             self._process_chunk(self._pending, len(self._pending))
             self._pending = np.zeros(0, np.float32)
@@ -519,6 +540,7 @@ class Recognizer:
             self.samples_round_start_ += self.samples_processed_
             self.samples_processed_ = 0
             self.frame_offset_ = 0
+            self._spk_feats = []
             self._init_pipeline()
         else:
             # restart decoding from the start state, keep feature/AM streams
@@ -642,7 +664,8 @@ class Recognizer:
             if not paths:
                 return self._store_empty()
             words = self._word_results(paths[0][1])
-            return jsonout.final_result(words, self.words_)
+            spk_vec, spk_frames = self._speaker_vector()
+            return jsonout.final_result(words, self.words_, spk_vec, spk_frames)
         paths = self._lattice_paths(self.max_alternatives_, use_final=True)
         if not paths:
             return self._store_empty()
@@ -650,6 +673,14 @@ class Recognizer:
         if self.nlsml_:
             return jsonout.nlsml_result(alts)
         return jsonout.nbest_result(alts, self.words_)
+
+    def _speaker_vector(self):
+        if self.spk_model is None:
+            return None, None
+        from ..models.xvector import extract_xvector_for_recognizer
+
+        with self.metrics.timer("speaker"):
+            return extract_xvector_for_recognizer(self)
 
     def _store_empty(self) -> str:
         if not self.max_alternatives_:

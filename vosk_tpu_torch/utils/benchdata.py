@@ -149,13 +149,16 @@ def make_bench_model(
     seed: int = 0,
     num_words: int = 100_000,
     device="cuda",
+    feat_dim: int = 40,
 ) -> native.NativeModel:
     """In-memory NativeModel on `make_realistic_graph` (the source's
     realistic=True branch).  Defaults are the full width that bench.py
     runs, at the reference operating point (max_active=7000, beam=13,
-    lattice_beam=6; src/model.cc:134-147)."""
+    lattice_beam=6; src/model.cc:134-147).  `feat_dim` is the AM's input:
+    40 MFCC-hires, or 43 with the 3 pitch dims (the model then needs
+    `config.pitch_opts`, as a Kaldi dir's pitch.conf gives it)."""
     am_cfg = TdnnfConfig(
-        feat_dim=40,
+        feat_dim=feat_dim,
         hidden_dim=hidden,
         bottleneck_dim=96,
         prefinal_dim=192,

@@ -21,6 +21,10 @@ machine with no jax can build them.
     sparse word features and a feature embedding.
   * `write_native_rescoring`: a native dir's `g.npz`, `rescore.arpa` and
     GRU `rnnlm/`.
+  * `write_pitch_conf`: a Kaldi V2 dir's conf/pitch.conf (online pitch).
+  * `xvector_net` / `write_kaldi_xvector_dir`: a Kaldi speaker dir
+    (final.ext.raw, mean.vec, transform.mat, mfcc.conf) whose net is the
+    node graph of Kaldi's VoxCeleb x-vector recipe.
 """
 from __future__ import annotations
 
@@ -407,3 +411,91 @@ def write_native_rescoring(model, out, seed: int = 0, rnnlm_dims=(1024, 1024),
                           hidden_dim=rnnlm_dims[1])
         save_rnnlm(d / "rnnlm", cfg, init_rnnlm_params(cfg, seed=seed))
     return counts
+
+
+# ------------------------------------------------------------ pitch, speaker
+
+
+def write_pitch_conf(kaldi_dir, lines=("--sample-frequency=16000",)) -> None:
+    """conf/pitch.conf of a Kaldi V2 dir (egs/aishell/s5's is the default:
+    --sample-frequency=16000), which turns online pitch on."""
+    (Path(kaldi_dir) / "conf" / "pitch.conf").write_text("\n".join(lines) + "\n")
+
+
+XVECTOR_CONTEXTS = ((-2, -1, 0, 1, 2), (-2, 0, 2), (-3, 0, 3), (0,), (0,))
+
+
+def xvector_net(rng, feat_dim: int = 30, layer_dims=(512, 512, 512, 512, 1500),
+                embed_dim: int = 512) -> n3.Nnet3:
+    """The node graph of Kaldi's VoxCeleb x-vector recipe
+    (egs/voxceleb/v2/local/nnet3/xvector/tuning/run_xvector_1a.sh) as
+    final.ext.raw holds it: relu-batchnorm layers (affine, ReLU,
+    BatchNorm) over Append(-2..2), Append(-2,0,2), Append(-3,0,3), 0 and 0;
+    `stats-layer mean+stddev(0:1:1:10000)` as a StatisticsExtraction +
+    StatisticsPooling pair read through Round(., 1); the output at
+    tdnn6.affine, where extraction truncates the net.  Seeded weights and
+    batch-norm statistics."""
+    net = n3.Nnet3()
+    lines = [f"input-node name=input dim={feat_dim}"]
+    comps = {}
+    prev, din = "input", feat_dim
+    for i, (ctx, dout) in enumerate(zip(XVECTOR_CONTEXTS, layer_dims), start=1):
+        name = f"tdnn{i}"
+        src = prev if ctx == (0,) else "Append(" + ", ".join(
+            prev if o == 0 else f"Offset({prev}, {o})" for o in ctx) + ")"
+        fan_in = din * len(ctx)
+        comps[f"{name}.affine"] = n3.AffineComponent(
+            (rng.standard_normal((dout, fan_in)) / np.sqrt(fan_in)).astype(np.float32),
+            (rng.standard_normal(dout) * 0.1).astype(np.float32))
+        comps[f"{name}.relu"] = n3.NonlinComponent(dout, "RectifiedLinearComponent")
+        comps[f"{name}.batchnorm"] = n3.BatchNormComponent(
+            dout, 1e-3, 1.0, rng.uniform(0.1, 0.5, dout).astype(np.float32),
+            rng.uniform(0.2, 1.0, dout).astype(np.float32))
+        lines += [
+            f"component-node name={name}.affine component={name}.affine input={src}",
+            f"component-node name={name}.relu component={name}.relu input={name}.affine",
+            f"component-node name={name}.batchnorm component={name}.batchnorm "
+            f"input={name}.relu"]
+        prev, din = f"{name}.batchnorm", dout
+    ex, pool = "stats-extraction-0-10000", "stats-pooling-0-10000"
+    comps[ex] = n3.StatisticsExtractionComponent(din, 1, 1, True)
+    comps[pool] = n3.StatisticsPoolingComponent(1 + 2 * din, 1, 0, 10000, 0, True)
+    comps["tdnn6.affine"] = n3.AffineComponent(
+        (rng.standard_normal((embed_dim, 2 * din)) / np.sqrt(2 * din)).astype(np.float32),
+        (rng.standard_normal(embed_dim) * 0.1).astype(np.float32))
+    lines += [f"component-node name={ex} component={ex} input={prev}",
+              f"component-node name={pool} component={pool} input={ex}",
+              f"component-node name=tdnn6.affine component=tdnn6.affine input=Round({pool}, 1)",
+              "output-node name=output input=tdnn6.affine objective=linear"]
+    for line in lines:
+        net._parse_config_line(line)
+    net.components, net.component_order = comps, list(comps)
+    return net
+
+
+def write_kaldi_xvector_dir(out, seed: int = 0, feat_dim: int = 30,
+                            layer_dims=(512, 512, 512, 512, 1500), embed_dim: int = 512,
+                            lda_dim: int = 200) -> dict:
+    """A Kaldi speaker dir at the VoxCeleb recipe's widths by default:
+    final.ext.raw (`xvector_net`), mean.vec [embed_dim], transform.mat
+    [lda_dim, embed_dim] (egs/voxceleb/v2/run.sh, lda_dim=200) and the
+    recipe's conf/mfcc.conf (30 ceps, 30 mel bins).  Returns the dims and
+    the parameter count."""
+    from ..io.kaldiio import write_kaldi_object
+
+    rng = np.random.default_rng(seed)
+    d = Path(out)
+    d.mkdir(parents=True, exist_ok=True)
+    net = xvector_net(rng, feat_dim, layer_dims, embed_dim)
+    write_kaldi_object(d / "final.ext.raw", net.write)
+    mean = (rng.standard_normal(embed_dim) * 0.1).astype(np.float32)
+    transform = (rng.standard_normal((lda_dim, embed_dim)) / np.sqrt(embed_dim)).astype(np.float32)
+    write_kaldi_object(d / "mean.vec", lambda w: w.write_vector(mean))
+    write_kaldi_object(d / "transform.mat", lambda w: w.write_matrix(transform))
+    (d / "mfcc.conf").write_text(
+        f"--sample-frequency=16000\n--frame-length=25\n--low-freq=20\n--high-freq=7600\n"
+        f"--num-mel-bins={feat_dim}\n--num-ceps={feat_dim}\n--snip-edges=false\n")
+    params = sum(c.linear.size + c.bias.size for c in net.components.values()
+                 if isinstance(c, n3.AffineComponent))
+    return {"feat_dim": feat_dim, "layers": list(layer_dims), "embed_dim": embed_dim,
+            "lda_dim": lda_dim, "params": params}

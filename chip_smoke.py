@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rescoring-only | --pitch-only]
+    python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only]
 
-(`--rescoring-only` / `--pitch-only` build the kernels and run phase 12 /
-13 alone, with no result line.)  Phases, each of which raises on failure
+(`--rescoring-only` / `--pitch-only` / `--training-only` build the kernels
+and run phase 12 / 13 / 15 alone, with no result line.)  Phases, each of which raises on failure
 (the script then exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
@@ -150,8 +150,26 @@
      what a direct recognizer returns, test_vosk_mt.c's 4 threads must
      reach MT_MIN_SCALING over a warmed model (and run once more without
      the model's turn lock, for comparison), and their processes' kernel
-     counts must show both frame-step kernels.  Each path's counts are zeroed
-     just before it and read just after.
+     counts must show both frame-step kernels.
+ 15. (run after 14) training: (a) the bench TDNN-F (40/512/96/192/6008,
+     11 layers, bf16) on a seeded minibatch of 64 chunks of 150 frames
+     (forward_utterance adds the context), 50 output frames of seeded pdf
+     labels, the denominator from those alignments (S = 6008, leak 0.1):
+     one LF-MMI step on the CPU, then three on the card (chain_trainer,
+     train_chain's loop): every loss and gradient norm finite, step 1's
+     loss within 1e-3 and gradient norm within 1e-2 of the CPU's (bf16
+     products summed in another order); step 2 timed after the warm
+     step 1 (peak memory beside it), step 3 profiled (device events);
+     den_logprob forward plus backward alone (CUDA events, device events);
+     one frame-CE step, finite; (b) the recipe demo (training/recipe.py,
+     chain, 24 train and 6 dev utterances, 400 steps) on the card, counts
+     zeroed just before stage 5: both frame-step kernels must launch in
+     its decode and the dev WER must be at most 0.15 (the bound
+     tests/test_chain.py puts on the source); seconds per stage; (c) three
+     RNNLM steps at phase 12's native GRU dims (1024/1024) over its
+     vocabulary (100,001 words), 32 seeded sentences: losses finite, step
+     1 within 1e-4 of the CPU's.  Each path's counts are zeroed just
+     before it and read just after.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -2165,6 +2183,186 @@ def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
     return {k: launches[k] for k in ("test_vosk", "test_vosk_mt")}
 
 
+TRAIN_CHUNKS, TRAIN_FRAMES = 64, 150  # phase 15's minibatch: Kaldi chain egs' chunk size
+RNNLM_SENTENCES = 32                  # phase 15 (c)'s batch of seeded sentences
+
+
+def rel_err(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def device_events(torch, fn):
+    """(device events, device us) of one call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler recorded no device event")
+    return len(dev), sum(ev.time_range.elapsed_us() for ev in dev)
+
+
+def phase_train_full_width(torch):
+    """Phase 15 (a): LF-MMI and frame-CE steps of the bench TDNN-F at full
+    width on the card.  Returns a dict of its numbers."""
+    import numpy as np
+
+    from vosk_tpu_torch.models import chain
+    from vosk_tpu_torch.models.train import frame_ce_trainer
+    from vosk_tpu_torch.utils.benchdata import bench_am_config
+
+    cfg = bench_am_config()
+    rng = np.random.default_rng(SEED + 40)
+    n_out = -(-TRAIN_FRAMES // cfg.subsample)
+    feats = rng.standard_normal((TRAIN_CHUNKS, TRAIN_FRAMES, cfg.feat_dim)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_pdfs, (TRAIN_CHUNKS, n_out))
+    t0 = time.perf_counter()
+    den = chain.DenominatorGraph.from_alignments(labels, cfg.num_pdfs)
+    den.leaky_hmm = 0.1
+    t_den = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu = chain.chain_trainer(cfg, feats, labels, den=den, device="cpu")
+    cpu_loss = float(cpu.step()[0])
+    cpu_norm = cpu.grad_norm()
+    t_cpu = time.perf_counter() - t0
+    del cpu
+    gc.collect()
+
+    card = chain.chain_trainer(cfg, feats, labels, den=den, device="cuda")
+    losses, norms, walls = [], [], []
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(card.step()[0]))  # float() waits for the step
+        walls.append(time.perf_counter() - t0)
+        norms.append(card.grad_norm())
+
+    step()                      # step 1: held to the CPU's; the warm step
+    torch.cuda.reset_peak_memory_stats()
+    step()                      # step 2: timed
+    peak = torch.cuda.max_memory_allocated()
+    events, device_us = device_events(torch, step)  # step 3: profiled
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"chain losses or gradient norms not finite: {losses} {norms}")
+    if rel_err(losses[0], cpu_loss) > 1e-3 or rel_err(norms[0], cpu_norm) > 1e-2:
+        raise AssertionError(f"the card's first chain step disagrees with the CPU's: loss "
+                             f"{losses[0]} vs {cpu_loss}, gradient norm {norms[0]} vs {cpu_norm}")
+
+    # den_logprob forward + backward alone, on the network's output shape
+    dden = chain.graph_to(den, "cuda")
+    ll = torch.randn((TRAIN_CHUNKS, n_out, cfg.num_pdfs), device="cuda", requires_grad=True)
+
+    def den_step():
+        ll.grad = None
+        chain.den_logprob(dden, ll).sum().backward()
+
+    den_ms = event_ms(torch, den_step, n=5)
+    den_events, den_us = device_events(torch, den_step)
+
+    ce = frame_ce_trainer(cfg, feats, labels, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ce_loss = float(ce.step()[0])
+    torch.cuda.synchronize()
+    ce_wall = time.perf_counter() - t0
+    if not np.isfinite(ce_loss):
+        raise AssertionError(f"frame-CE loss not finite: {ce_loss}")
+    out = dict(chunks=TRAIN_CHUNKS, frames=TRAIN_FRAMES, out_frames=n_out,
+               pdfs=cfg.num_pdfs, den_build_s=t_den, cpu_step_s=t_cpu,
+               losses=losses, cpu_loss=cpu_loss, loss_rel_err=rel_err(losses[0], cpu_loss),
+               grad_norms=norms, cpu_grad_norm=cpu_norm,
+               grad_norm_rel_err=rel_err(norms[0], cpu_norm),
+               step_ms_first=walls[0] * 1e3, step_ms=walls[1] * 1e3,
+               device_events_per_step=events, device_ms_per_step=device_us / 1e3,
+               den_logprob_fwd_bwd_ms=den_ms, den_device_events=den_events,
+               den_device_ms=den_us / 1e3, den_share_of_step=den_ms / (walls[1] * 1e3),
+               peak_gib=peak / 2**30, ce_loss=ce_loss, ce_first_step_ms=ce_wall * 1e3)
+    log("training (a) full width, chain on the bench TDNN-F: " + json.dumps(out))
+    return out
+
+
+def phase_recipe(torch, tmp):
+    """Phase 15 (b): the recipe's demo (chain, 24 train and 6 dev
+    utterances, 400 steps) on the card; counts zeroed just before stage 5.
+    Returns (stage 5's launches, its numbers)."""
+    from vosk_tpu_torch.training import recipe
+
+    marks = []
+
+    def hook(line):
+        if line.startswith("stage 5"):
+            zero_counts()
+        marks.append((line, time.perf_counter()))
+
+    t0 = time.perf_counter()
+    rep = recipe.demo(str(Path(tmp) / "recipe_demo"), "chain", device="cuda", log=hook)
+    t_end = time.perf_counter()
+    launches = read_counts("the recipe's stage 5 (decode + score)")
+    stages = {}
+    for (line, t), nxt in zip(marks, [m[1] for m in marks[1:]] + [t_end]):
+        if line.startswith("stage"):
+            stages[line.split(":")[0]] = nxt - t
+    if rep["wer"] > 0.15:
+        raise AssertionError(f"the recipe's dev WER is above 0.15: {rep}")
+    out = dict(report=rep, stage_s=stages, total_s=t_end - t0)
+    log(f"training (b) recipe demo on the card: {json.dumps(out)}; stage 5 "
+        f"{count_line(launches)}")
+    return launches, out
+
+
+def phase_train_rnnlm(torch, cfg):
+    """Phase 15 (c): RNNLM steps at phase 12's native GRU dims over its
+    vocabulary (cfg), on seeded sentences, card against CPU."""
+    import numpy as np
+
+    from vosk_tpu_torch.models.rnnlm import rnnlm_trainer
+
+    rng = np.random.default_rng(SEED + 41)
+    sents = [list(rng.integers(1, cfg.vocab_size, rng.integers(5, 16)))
+             for _ in range(RNNLM_SENTENCES)]
+    t0 = time.perf_counter()
+    cpu_loss = float(rnnlm_trainer(cfg, sents, device="cpu").step()[0])
+    t_cpu = time.perf_counter() - t0
+    card = rnnlm_trainer(cfg, sents, device="cuda")
+    losses, walls = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(card.step()[0]))
+        walls.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)) or rel_err(losses[0], cpu_loss) > 1e-4:
+        raise AssertionError(f"RNNLM losses {losses} against the CPU's {cpu_loss}")
+    out = dict(vocab=cfg.vocab_size, embed=cfg.embed_dim, hidden=cfg.hidden_dim,
+               sentences=len(sents), losses=losses, cpu_loss=cpu_loss,
+               loss_rel_err=rel_err(losses[0], cpu_loss), step_ms=[w * 1e3 for w in walls],
+               cpu_step_s=t_cpu)
+    log("training (c) RNNLM: " + json.dumps(out))
+    return out
+
+
+def native_rnnlm_config(path):
+    """The RnnlmConfig of a native GRU rnnlm/ dir (its vocabulary and dims)."""
+    from vosk_tpu_torch.models.rnnlm import RnnlmConfig
+
+    return RnnlmConfig(**json.loads((Path(path) / "vosk_tpu_rnnlm.json").read_text()))
+
+
+def phase_training(torch, tmp, rnnlm_cfg):
+    """Phase 15: (a), (b) and (c).  Returns (stage 5's launches, numbers)."""
+    t0 = time.perf_counter()
+    full = phase_train_full_width(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, rec = phase_recipe(torch, tmp)
+    rnn = phase_train_rnnlm(torch, rnnlm_cfg)
+    log(f"phase 15 (training) took {time.perf_counter() - t0:.3f} s")
+    return launches, {"full_width": full, "recipe": rec, "rnnlm": rnn}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2200,6 +2398,13 @@ def main() -> int:
     if sys.argv[1:] == ["--rescoring-only"]:  # phase 12 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:
             log(json.dumps(phase_rescoring(torch, tmp)))
+        return 0
+    if sys.argv[1:] == ["--training-only"]:  # phase 15 alone, for iterating on it
+        from vosk_tpu_torch.models.rnnlm import RnnlmConfig
+
+        with tempfile.TemporaryDirectory() as tmp:
+            log(json.dumps(phase_training(torch, tmp, RnnlmConfig(
+                vocab_size=100_001, embed_dim=1024, hidden_dim=1024))[1]))
         return 0
     if sys.argv[1:] == ["--pitch-only"]:  # phase 13 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:
@@ -2260,13 +2465,15 @@ def main() -> int:
         del bench_stream_model
         log(f"phase 14 (exact3, server, transcriber, C ABI) took "
             f"{time.perf_counter() - t14:.3f} s")
+        launches_recipe, training = phase_training(
+            torch, tmp, native_rnnlm_config(Path(tmp) / "resc_native" / "rnnlm"))
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
              "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
              "split": launches_split, "grammar": launches_grammar, **launches_v3,
              **rescoring, "pitch": launches_pitch, "pitch_batch": launches_pitch_batch,
              "speaker": launches_speaker, **launches_exact3, "server": launches_server,
-             "transcriber": launches_cli,
+             "transcriber": launches_cli, "recipe": launches_recipe,
              **{f"cabi_{k}": {n: v.get(n, 0) for n in ("expand_v4", "select_v4", "gather_rows")}
                 for k, v in launches_cabi.items()}}
     gather_times = {**b1, **kaldi_times, **split_times, **v3_times}
@@ -2344,6 +2551,8 @@ def main() -> int:
     log("rescoring RNNLM (torch ops, no hand kernel): " + json.dumps(rnnlm))
     log("pitch and x-vector (torch ops, no hand kernel): " + json.dumps(
         {"pitch": pitch_info, "speaker": speaker_info}))
+    log("training (torch ops, no hand kernel; the recipe decodes through expand_v4 and "
+        "select_v4): " + json.dumps(training))
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

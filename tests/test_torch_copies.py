@@ -13,8 +13,10 @@ i-vector dir reader/writer is held in tests/test_torch_ivector.py.  Each
 must give exactly what its source gives on the same input.  The entry
 points' copies (websocket protocol and server, transcriber and CLI, the C
 ABI's vosk_api.cc) may differ from their sources only in the package they
-import and the device of their models; and no module of the port imports
-jax or vosk_tpu.
+import and the device of their models; the training path's copies (WER
+scoring, the flat-start GMM aligner, the toy corpus synthesis) only where
+stated (their behaviour: tests/test_torch_recipe.py); and no module of the
+port imports jax or vosk_tpu.
 """
 import ast
 import asyncio
@@ -839,6 +841,51 @@ def test_entry_point_copies_differ_only_in_the_device(copy):
     for the package they import and the model's device."""
     src, removed, added = COPIES[copy]
     assert _code_changes(f"vosk_tpu/{src}", f"vosk_tpu_torch/{copy}") == (removed, added)
+
+
+TRAINING_COPIES = {  # the training path's host copies, as COPIES
+    "utils/wer.py": ("utils/wer.py", [], []),
+    "training/gmm.py": ("training/gmm.py", [
+        "    feats = [np.asarray(extractor.extract(w[None]))[0] for w in utt_wavs]"], [
+        "    feats = [extractor.extract(w[None])[0].cpu().numpy() for w in utt_wavs]"]),
+}
+
+
+@pytest.mark.parametrize("copy", list(TRAINING_COPIES))
+def test_training_copies_differ_only_where_stated(copy):
+    """wer.py is its source; gmm.py is its source but for bringing the
+    port's features (a tensor on the extractor's device) to the host."""
+    src, removed, added = TRAINING_COPIES[copy]
+    assert _code_changes(f"vosk_tpu/{src}", f"vosk_tpu_torch/{copy}") == (removed, added)
+
+
+TOY_SYNTHESIS = ("RATE", "PHONE_DUR", "TONE_FREQS", "WORDS", "WORD_PHONES", "SIL_PHONE",
+                 "build_symbols", "synth_phone", "synth_utterance", "ToyLanguage",
+                 "build_big_language", "synth_phone_lang", "synth_utterance_lang",
+                 "make_test_wav")
+
+
+def _top_level(path, names):
+    """{name: source text} of the top-level definitions and assignments of
+    a module that bear the given names."""
+    text = (REPO / path).read_text()
+    out = {}
+    for node in ast.parse(text).body:
+        targets = ([t.id for t in node.targets if isinstance(t, ast.Name)]
+                   if isinstance(node, ast.Assign) else [getattr(node, "name", None)])
+        for name in targets:
+            if name in names:
+                out[name] = ast.get_source_segment(text, node)
+    return out
+
+
+def test_toydata_synthesis_copy_is_its_source():
+    """The toy corpus synthesis in the port's utils/toydata.py (symbols,
+    phone and utterance synthesis, the generated language, the test WAV)
+    is its source's text."""
+    port = _top_level("vosk_tpu_torch/utils/toydata.py", TOY_SYNTHESIS)
+    assert set(port) == set(TOY_SYNTHESIS)
+    assert port == _top_level("vosk_tpu/utils/toydata.py", TOY_SYNTHESIS)
 
 
 def _c_code(path):

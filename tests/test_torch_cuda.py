@@ -3,8 +3,8 @@ kernels (expand_v4 over packed16 and exact3 rows, select_v4), the decoder
 with them, the v3 decoder with
 the gather kernel at its four sites, a streaming KaldiRecognizer decode
 (v4, and v3 on a graph that keeps labeled eps arcs), a Kaldi-layout
-directory with i-vectors, and the rescoring RNNLMs (Kaldi TDNN-LSTM and
-GRU) against the CPU.
+directory with i-vectors, the rescoring RNNLMs (Kaldi TDNN-LSTM and
+GRU), pitch, x-vectors and one LF-MMI training step against the CPU.
 
 These tests need an NVIDIA GPU and skip without one.  They import neither
 jax nor vosk_tpu, so they run where only the port is installed:
@@ -647,3 +647,36 @@ def test_xvector_on_card_matches_cpu(cuda_device, tmp_path):
         got, want = card.extract(feats), cpu.extract(feats)
         assert np.all(np.isfinite(got))
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chain_step_on_card_matches_cpu(cuda_device, dtype):
+    """One LF-MMI step of a small TDNN-F (models/chain.py chain_trainer, the
+    loop train_chain runs) on the card against the CPU, TF32 off: f32
+    products give the loss within 1e-5 and the gradients within 1e-4 of
+    their largest element; bf16-rounded operands, summed in another order,
+    the loss within 1e-3 and the gradient norm within 1e-2 (phase 15's
+    bounds)."""
+    from vosk_tpu_torch.models.chain import chain_trainer
+    from vosk_tpu_torch.models.tdnnf import TdnnfConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TdnnfConfig(feat_dim=8, hidden_dim=32, bottleneck_dim=8, prefinal_dim=16,
+                      num_pdfs=50, time_strides=(1, 0, 3), compute_dtype=dtype)
+    rng = np.random.default_rng(13)
+    feats = rng.standard_normal((6, 45, 8)).astype(np.float32)
+    labels = rng.integers(0, 50, (6, 15))
+    cpu = chain_trainer(cfg, feats, labels, device="cpu")
+    card = chain_trainer(cfg, feats, labels, device=cuda_device)
+    (lc, _), (lg, _) = cpu.step(), card.step()
+    assert all(p.is_cuda for p in card.params.values())
+    assert np.isfinite(float(lg))
+    if dtype == "float32":
+        assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+        for k, p in cpu.params.items():
+            want = p.grad.numpy()
+            np.testing.assert_allclose(card.params[k].grad.cpu().numpy(), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max() + 1e-9, err_msg=k)
+    else:
+        assert float(lg) == pytest.approx(float(lc), rel=1e-3)
+        assert card.grad_norm() == pytest.approx(cpu.grad_norm(), rel=1e-2)

@@ -13,8 +13,10 @@ change of mechanism: each history's log-prob row is copied to the host
 once and scored there, so scoring a lattice arc is a host read, not a
 device sync.  `MixtureLm` combines scorers with weights.  `init_rnnlm_params`
 is the source's seeded numpy initializer; `params_from_numpy` carries a
-parameter dict (the source's or a saved one) to a device.  Training
-(`train_rnnlm`) is not ported (ROADMAP A14).
+parameter dict (the source's or a saved one) to a device.  `train_rnnlm`
+is the source's trainer: the GRU cell (`gru_cell`, the one `step` runs)
+unrolled over padded sentences with teacher forcing, masked next-word
+cross-entropy, Adam (`models/train.py` AdamTrainer).
 """
 from __future__ import annotations
 
@@ -70,6 +72,16 @@ def save_rnnlm(path, cfg: RnnlmConfig, params: Dict[str, np.ndarray]) -> None:
     np.savez(p / "rnnlm.npz", **params)
 
 
+def gru_cell(p, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step: embeddings x [..., E] and hidden h [..., H] -> the new
+    hidden [..., H] (the source's `_step_impl` and `train_rnnlm` cell)."""
+    xh = torch.cat([x, h], dim=-1)
+    z = torch.sigmoid(xh @ p["gru_wz"])
+    r = torch.sigmoid(xh @ p["gru_wr"])
+    hc = torch.tanh(torch.cat([x, r * h], dim=-1) @ p["gru_wh"])
+    return (1 - z) * h + z * hc
+
+
 class RnnlmModel(nn.Module):
     def __init__(self, cfg: RnnlmConfig, params, device="cuda"):
         super().__init__()
@@ -90,13 +102,7 @@ class RnnlmModel(nn.Module):
     def step(self, h: torch.Tensor, word: int):
         """(new hidden, log-probs over extended vocab), both on the device."""
         p = self.params
-        x = p["embed"][self._wid(word)]
-        xh = torch.cat([x, h])
-        z = torch.sigmoid(xh @ p["gru_wz"])
-        r = torch.sigmoid(xh @ p["gru_wr"])
-        xh2 = torch.cat([x, r * h])
-        hc = torch.tanh(xh2 @ p["gru_wh"])
-        h2 = (1 - z) * h + z * hc
+        h2 = gru_cell(p, p["embed"][self._wid(word)], h)
         logits = h2 @ p["out_w"] + p["out_b"]
         return h2, torch.log_softmax(logits, dim=-1)
 
@@ -181,3 +187,55 @@ class MixtureLm:
 
     def final_cost(self, state):
         return sum(wgt * lm.final_cost(st) for (wgt, lm), st in zip(self.parts, state))
+
+
+def rnnlm_trainer(cfg: RnnlmConfig, sentences: List[List[int]], lr: float = 1e-2,
+                  seed: int = 0, device="cuda"):
+    """The trainer `train_rnnlm` runs: every sentence (word ids) a row of
+    one padded batch, bos-prefixed inputs, eos-terminated targets."""
+    from .train import AdamTrainer
+
+    model = RnnlmModel(cfg, init_rnnlm_params(cfg, seed), device=device)
+    bos_id, eos_id = cfg.vocab_size, cfg.vocab_size + 1
+    T = max(len(s) for s in sentences) + 1
+    N = len(sentences)
+    inp = np.full((N, T), eos_id, np.int64)
+    tgt = np.full((N, T), -1, np.int64)
+    for i, s in enumerate(sentences):
+        ids = [bos_id] + [model._wid(w) for w in s]
+        out = [model._wid(w) for w in s] + [eos_id]
+        inp[i, : len(ids)] = ids
+        tgt[i, : len(out)] = out
+    params = {k: v.requires_grad_() for k, v in model.params.items()}
+    inp_t = torch.as_tensor(inp.T.copy(), device=device)  # [T, N]
+    tgt_t = torch.as_tensor(tgt.T.copy(), device=device)
+    mask = (tgt_t >= 0).to(torch.float32)
+
+    def loss_fn():
+        p = params
+        h = torch.zeros((N, cfg.hidden_dim), dtype=torch.float32, device=device)
+        hs = []
+        for t in range(T):
+            h = gru_cell(p, p["embed"][inp_t[t]], h)
+            hs.append(h)
+        logits = torch.stack(hs) @ p["out_w"] + p["out_b"]  # [T, N, V]
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 2, torch.clamp(tgt_t, min=0)[..., None])[..., 0]
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1), {}
+
+    return AdamTrainer(params, loss_fn, lr)
+
+
+def train_rnnlm(
+    cfg: RnnlmConfig,
+    sentences: List[List[int]],
+    steps: int = 200,
+    lr: float = 1e-2,
+    seed: int = 0,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """Tiny next-word CE trainer (teacher forcing over padded batches)."""
+    trainer = rnnlm_trainer(cfg, sentences, lr, seed, device)
+    for _ in range(steps):
+        trainer.step()
+    return trainer.numpy_params()

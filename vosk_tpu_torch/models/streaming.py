@@ -1,7 +1,8 @@
 """Generic streaming wrapper for acoustic models, in PyTorch.
 
-Port of `vosk_tpu/models/streaming.py` (`init_stream_state`,
-`_process_chunk_impl`, `_flush_impl` as `flush`).  Any module exposing
+Port of `vosk_tpu/models/streaming.py` (`forward_utterance`,
+`init_stream_state`, `_process_chunk_impl`, `_flush_impl` as `flush`).
+Any module exposing
 `forward(window [B, W, D], ivector [B, I] or None) -> [B, ceil(W/ss), P]`
 with known left/right context and subsampling gets chunked streaming with
 carried feature history, masked per-channel advance, and end-of-stream
@@ -26,6 +27,20 @@ class StreamingAm:
     def _left_pad(self) -> int:
         ss = self.subsample
         return ((self.left_context + ss - 1) // ss) * ss
+
+    def forward_utterance(self, feats: torch.Tensor, ivector=None) -> torch.Tensor:
+        """Whole-utterance forward with Kaldi edge-copy padding: feats
+        [B, T, D] -> [B, ceil(T/ss), P] (the source's `forward_utterance`;
+        the trainers run it over their master parameters)."""
+        ss = self.subsample
+        Lp, R = self._left_pad, self.right_context
+        T = feats.shape[1]
+        n_out = -(-T // ss)
+        need_right = max((n_out - 1) * ss + R + 1 - T, 0)
+        window = torch.cat([feats[:, :1].expand(-1, Lp, -1), feats,
+                            feats[:, -1:].expand(-1, need_right, -1)], dim=1)
+        out = self.forward(window, ivector)
+        return out[:, Lp // ss: Lp // ss + n_out]
 
     def init_stream_state(self, batch: int, chunk_frames: int) -> dict:
         H = self._left_pad + self.right_context + chunk_frames + self.subsample

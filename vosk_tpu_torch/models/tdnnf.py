@@ -11,7 +11,11 @@ compute_dtype="bfloat16": the source multiplies bf16 inputs with f32
 outputs (`preferred_element_type=float32`).  Here the inputs are rounded to
 bf16 and the product is taken in f32, which keeps the f32 output on every
 device (a bf16 x bf16 product is exact in f32; only the summation order
-differs).  The weights are rounded once at construction.
+differs).  A serving model rounds its weights once at construction; a
+trainable one (`trainable=True`, the trainers' f32 master weights) rounds
+both operands inside each product through `bf16_matmul`, whose backward
+rounds each gradient to bf16 as `jax.grad` of the source's product does.
+Both run the one forward, `tdnnf_forward`.
 """
 from __future__ import annotations
 
@@ -90,11 +94,65 @@ def _splice(x: torch.Tensor, offsets) -> torch.Tensor:
 _MATMUL_KEYS = ("_w", "_lin", "_l", "_l2")
 
 
-class TdnnfModel(nn.Module, StreamingAm):
-    """TDNN-F forward over parameters held as (frozen) module parameters;
-    streaming state = carried feature context (StreamingAm)."""
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
 
-    def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda"):
+
+class _Bf16Matmul(torch.autograd.Function):
+    """x @ w over bf16-rounded operands with an f32 result, as the source's
+    `jnp.matmul(x.astype(bf16), w.astype(bf16), preferred_element_type=f32)`.
+    Its gradients are what `jax.grad` gives there: the f32 cotangent (not
+    rounded) times the other rounded operand, summed in f32, then rounded to
+    bf16 once (the transposed product takes the bf16 operand's type)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = _bf16(x), _bf16(w)
+        ctx.save_for_backward(xb, wb)
+        return torch.matmul(xb, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = _bf16(torch.matmul(g, wb.t()))
+        dw = _bf16(xb.reshape(-1, xb.shape[-1]).t() @ g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
+bf16_matmul = _Bf16Matmul.apply
+
+
+def tdnnf_forward(cfg: TdnnfConfig, p, feats: torch.Tensor, mm) -> torch.Tensor:
+    """The TDNN-F forward over parameters `p` (a name -> tensor mapping):
+    feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs], every
+    product through `mm(x, w)`."""
+    x = _splice(feats, (-1, 0, 1))
+    x = mm(x, p["tdnn1_w"]) + p["tdnn1_b"]
+    x = torch.relu(x) * p["tdnn1_scale"] + p["tdnn1_offset"]
+
+    for i, s in enumerate(cfg.time_strides):
+        y = x if s == 0 else _splice(x, (-s, 0))
+        b = mm(y, p[f"tdnnf{i}_lin"])
+        y2 = b if s == 0 else _splice(b, (0, s))
+        y2 = mm(y2, p[f"tdnnf{i}_aff_w"]) + p[f"tdnnf{i}_aff_b"]
+        y2 = torch.relu(y2) * p[f"tdnnf{i}_scale"] + p[f"tdnnf{i}_offset"]
+        x = cfg.bypass_scale * x + y2
+
+    x = mm(x, p["prefinal_l"])
+    x = mm(x, p["prefinal_w"]) + p["prefinal_b"]
+    x = torch.relu(x) * p["prefinal_scale"] + p["prefinal_offset"]
+    x = mm(x, p["prefinal_l2"])
+    out = mm(x, p["output_w"]) + p["output_b"]
+    # chain output: raw pseudo-loglikes, no log-softmax (run_tdnn.sh:120)
+    return out[:, :: cfg.subsample]
+
+
+class TdnnfModel(nn.Module, StreamingAm):
+    """TDNN-F forward over parameters held as module parameters: frozen and
+    pre-rounded for serving, or f32 master weights with gradients when
+    `trainable`; streaming state = carried feature context (StreamingAm)."""
+
+    def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda", trainable=False):
         super().__init__()
         if cfg.ivector_dim:
             raise NotImplementedError(
@@ -103,12 +161,13 @@ class TdnnfModel(nn.Module, StreamingAm):
             )
         self.cfg = cfg
         self.bf16 = cfg.compute_dtype == "bfloat16"
+        self.trainable = trainable
         tensors = {}
         for k, v in params.items():
             t = torch.tensor(np.asarray(v, np.float32))
-            if self.bf16 and k.endswith(_MATMUL_KEYS):
-                t = t.to(torch.bfloat16).to(torch.float32)
-            tensors[k] = nn.Parameter(t, requires_grad=False)
+            if self.bf16 and not trainable and k.endswith(_MATMUL_KEYS):
+                t = _bf16(t)
+            tensors[k] = nn.Parameter(t, requires_grad=trainable)
         self.params = nn.ParameterDict(tensors).to(device)
 
     @property
@@ -116,33 +175,16 @@ class TdnnfModel(nn.Module, StreamingAm):
         return self.params["tdnn1_w"].device
 
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        if self.bf16:
-            x = x.to(torch.bfloat16).to(torch.float32)
-        return torch.matmul(x, w)
+        if not self.bf16:
+            return torch.matmul(x, w)
+        if self.trainable:
+            return bf16_matmul(x, w)
+        return torch.matmul(_bf16(x), w)
 
     def forward(self, feats: torch.Tensor, ivector=None) -> torch.Tensor:
         """feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs]
         (`ivector` is always None: the model has no i-vector input)."""
-        cfg, p, mm = self.cfg, self.params, self._mm
-        x = _splice(feats, (-1, 0, 1))
-        x = mm(x, p["tdnn1_w"]) + p["tdnn1_b"]
-        x = torch.relu(x) * p["tdnn1_scale"] + p["tdnn1_offset"]
-
-        for i, s in enumerate(cfg.time_strides):
-            y = x if s == 0 else _splice(x, (-s, 0))
-            b = mm(y, p[f"tdnnf{i}_lin"])
-            y2 = b if s == 0 else _splice(b, (0, s))
-            y2 = mm(y2, p[f"tdnnf{i}_aff_w"]) + p[f"tdnnf{i}_aff_b"]
-            y2 = torch.relu(y2) * p[f"tdnnf{i}_scale"] + p[f"tdnnf{i}_offset"]
-            x = cfg.bypass_scale * x + y2
-
-        x = mm(x, p["prefinal_l"])
-        x = mm(x, p["prefinal_w"]) + p["prefinal_b"]
-        x = torch.relu(x) * p["prefinal_scale"] + p["prefinal_offset"]
-        x = mm(x, p["prefinal_l2"])
-        out = mm(x, p["output_w"]) + p["output_b"]
-        # chain output: raw pseudo-loglikes, no log-softmax (run_tdnn.sh:120)
-        return out[:, :: cfg.subsample]
+        return tdnnf_forward(self.cfg, self.params, feats, self._mm)
 
     @property
     def feat_dim(self) -> int:

@@ -139,6 +139,22 @@ def make_plausible_loglikes(
     return ll
 
 
+def bench_am_config(num_pdfs: int = 6008, hidden: int = 512,
+                    compute_dtype: str = "bfloat16", feat_dim: int = 40) -> TdnnfConfig:
+    """The bench TDNN-F (bench.py:213-217): 40/512/96/192/6008, 11 layers,
+    strides (1,1,1,0,3,3,3,3,3,3,3), subsample 3, bf16 products."""
+    return TdnnfConfig(
+        feat_dim=feat_dim,
+        hidden_dim=hidden,
+        bottleneck_dim=96,
+        prefinal_dim=192,
+        num_pdfs=num_pdfs,
+        time_strides=(1, 1, 1, 0, 3, 3, 3, 3, 3, 3, 3),
+        subsample=3,
+        compute_dtype=compute_dtype,
+    )
+
+
 def make_bench_model(
     num_states: int = 2_000_000,
     num_pdfs: int = 6008,
@@ -157,16 +173,7 @@ def make_bench_model(
     lattice_beam=6; src/model.cc:134-147).  `feat_dim` is the AM's input:
     40 MFCC-hires, or 43 with the 3 pitch dims (the model then needs
     `config.pitch_opts`, as a Kaldi dir's pitch.conf gives it)."""
-    am_cfg = TdnnfConfig(
-        feat_dim=feat_dim,
-        hidden_dim=hidden,
-        bottleneck_dim=96,
-        prefinal_dim=192,
-        num_pdfs=num_pdfs,
-        time_strides=(1, 1, 1, 0, 3, 3, 3, 3, 3, 3, 3),
-        subsample=3,
-        compute_dtype=compute_dtype,
-    )
+    am_cfg = bench_am_config(num_pdfs, hidden, compute_dtype, feat_dim)
     params = init_params(am_cfg, seed=seed)
     graph = make_realistic_graph(
         num_states=num_states, num_pdfs=num_pdfs, num_words=num_words, seed=seed,

@@ -24,9 +24,11 @@ and run phase 12 / 13 / 15 alone, with no result line.)  Phases, each of which r
      frontier and all five record planes must be bit-equal; then the two
      frame-step kernels (expand_v4, select_v4) against their plain
      versions, bit for bit, on one real frame at B = 32 and at B = 1
-     (K = 7000, M = 4, R = 7000) and on a B = 32 frame under load (flat
-     scores, channels at max-active, the whole pool in range), with
-     kernel, plain and bound times,
+     (K = 7000, M = 4, R = 7000), on a B = 32 frame under load (flat
+     scores, channels at max-active, the whole pool in range) and on the
+     same at max-active 10,000 (select_v4's pass 2 in global scratch), with
+     kernel, plain and bound times, select_v4's pass-1 list length, in-range
+     count and winners per channel and its scratch bytes a call,
      select's yardstick (one stable torch.sort of the same pool, the first
      of the three sorts it replaces), and expand's two ways of reading the
      ll row, five times each, interleaved; then one decode_chunk at B = 32
@@ -178,6 +180,7 @@ nothing is downloaded.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -397,9 +400,17 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
     outs = [dec.record_buffers((2, Bn)) for _ in range(2)]
     k_out = {k: v[1] for k, v in outs[0].items()}
     p_out = {k: v[1] for k, v in outs[1].items()}
-    kf, krec = fs.select_v4(*sel, k_out, scratch=dec._select_scratch)
+    stats = torch.zeros((Bn, 3), dtype=torch.int32, device=dec.device)
+    kf, krec = fs.select_v4(*sel, k_out, scratch=dec._select_scratch, stats=stats)
     pf, prec = fs.select_v4_plain(*sel, p_out)
     torch.cuda.synchronize()
+    st = stats.cpu()
+    E = K * M
+    log(f"select_v4 {name} per channel: pass-1 list {st[:, 0].tolist()}, in range "
+        f"{st[:, 1].tolist()}, winners {st[:, 2].tolist()}; scratch "
+        f"{fs.SelectScratch.nbytes(Bn, E, K, dec.K2, R)} bytes a call (pass 2 in "
+        f"{'global' if fs.select_in_global(E, K, dec.K2, R) else 'shared'} memory; the "
+        f"list alone {4 * Bn * E} bytes, {8 * Bn * E} with int64 entries)")
     for what, got, want in (("frontier", kf, pf), ("records", krec, prec)):
         for k in got:
             err["select_v4"] = max(err["select_v4"], bit_err(torch, got[k], want[k]))
@@ -544,8 +555,10 @@ def phase_front_end(torch, bm):
 def phase_decoder(torch, bm):
     """Full-width decoder chunks: the frame-step kernels vs their plain
     versions on the same CUDA tensors vs the CPU (plain) decoder, bit for
-    bit; then both kernels on one real frame at B = 32 and at B = 1."""
+    bit; then both kernels on one real frame at B = 32 and at B = 1, under
+    load at B = 32, and under load at max-active 10,000."""
     from vosk_tpu_torch.ops import frame_step
+    from vosk_tpu_torch.ops.viterbi import BatchViterbi
 
     dec = bm._pipeline.dec
     g = torch.Generator().manual_seed(SEED + 2)
@@ -598,18 +611,26 @@ def phase_decoder(torch, bm):
     }
     profile = phase_profile(torch, dec, fr, ll, valid.to(dec.device))
     fr, ll = loaded_frame(torch, bm)
-    times["loaded"] = phase_frame_step(torch, "loaded", dec, fr, ll,
-                                       torch.ones(B, dtype=torch.bool, device=dec.device))
+    ones = torch.ones(B, dtype=torch.bool, device=dec.device)
+    times["loaded"] = phase_frame_step(torch, "loaded", dec, fr, ll, ones)
+    # max-active 10,000 on the same graph: pass 2 sorts and hashes in
+    # global scratch
+    d10 = BatchViterbi(dec.graph, dataclasses.replace(dec.params, max_active=10_000),
+                       silence_pdfs=dec.silence_pdfs, device=dec.device)
+    fr, ll = loaded_frame(torch, bm, dec=d10)
+    times["loaded_k10000"] = phase_frame_step(torch, "loaded max-active 10000", d10, fr, ll,
+                                              ones)
     return times, profile
 
 
-def loaded_frame(torch, bm, frames=32):
+def loaded_frame(torch, bm, frames=32, dec=None):
     """A B = 32 frame under load: the frontier after `frames` frames of flat
     seeded scores (N(0, 0.1^2) log-likelihoods: every arc stays within the
     beam, as in speech the model cannot yet tell apart), whose channels
     fill to max-active and keep their whole pool in range, and the chunk
-    whose last frame is next."""
-    dec = bm._pipeline.dec
+    whose last frame is next; on bm's decoder, or on `dec` (the same
+    graph)."""
+    dec = dec or bm._pipeline.dec
     P = bm._model.am_config.num_pdfs
     g = torch.Generator().manual_seed(SEED + 11)
     ll = (torch.randn((B, frames + 1, P), generator=g) * 0.1).to(dec.device)

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""select_v4 against the selection it replaced, on the same frames and card.
+"""select_v4 against a parent tree's select_v4, on the same frames and card.
 
-    git archive 5b453ab | tar -x -C _archive/parent
+    git archive <parent commit> | tar -x -C _archive/parent
     python3 select_vs_parent.py _archive/parent
 
-PARENT is an unpacked tree whose `vosk_tpu_torch` selects with three
-stable torch sorts, their payload gathers and the `select_tail_v4` kernel
-(`BatchViterbi._pool_v4` after expand, `_rank_v4`, `select_tail_v4`).
-That package is loaded under another name; this tree's makes the frames:
-the B = 32 batch frame and the B = 32 frame under load of chip_smoke.py
-(the full-width smoke model, 2M-state graph) and the split-graph frame
-(M = 266).  On each frame both selections run on the same pool from this
-tree's expand_v4, their outputs must be bit-equal, and each is timed with
-chip_smoke.event_ms (CUDA events over 100 calls behind a device sleep) in
-the order parent, change, change, parent, twice.  Prints one line per
-frame and, last, one JSON object {frame: {"parent_ms": [...],
-"select_v4_ms": [...]}}.  Needs one CUDA card.
+PARENT is an unpacked tree whose `vosk_tpu_torch.ops.frame_step` has a
+`select_v4` kernel wrapper of the same call (its own kernel library is
+built from its own csrc/).  That package is loaded under another name;
+this tree's makes the frames, those of chip_smoke.py on the full-width
+smoke model (2M-state graph): the B = 32 batch frame and its first channel
+(B = 1), the B = 32 frame under load (flat scores, channels at
+max-active), the same at max-active 10,000 (pass 2 in global scratch), the
+split-graph frame (M = 266, B = 1) and the grammar frame (K = 124).  On
+each frame both selections run on the same pool from this tree's
+expand_v4 and must be bit-equal to each other and to select_v4_plain;
+each is timed with chip_smoke.event_ms (CUDA events over 100 calls behind
+a device sleep) in the order parent, change, change, parent, twice,
+beside one stable torch.sort of the pool.  Prints
+one line per frame (with this tree's pass-1 list length, in-range count
+and winners per channel) and, last, one JSON object {frame: {"parent_ms":
+[...], "select_v4_ms": [...], "torch_sort_ms": t}}.  Needs one CUDA card.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -26,65 +31,64 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
-from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
 
 def load_parent(parent: Path):
-    """The parent's frame_step and BatchViterbi, as package `parent_vtt`."""
+    """The parent's frame_step, as module `parent_vtt.ops.frame_step`."""
     pkg = parent / "vosk_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         "parent_vtt", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_vtt"] = mod
     spec.loader.exec_module(mod)
-    fs = importlib.import_module("parent_vtt.ops.frame_step")
-    vit = importlib.import_module("parent_vtt.ops.viterbi")
-    if not hasattr(fs, "select_tail_v4"):
-        raise SystemExit(f"{parent} has no select_tail_v4: not the sort-based selection")
-    return fs, vit
+    return importlib.import_module("parent_vtt.ops.frame_step")
 
 
-def compare(torch, cs, pfs, pvit, name, dec, fr, ll, valid):
+def compare(torch, cs, pfs, name, dec, fr, ll, valid):
     from vosk_tpu_torch.ops import frame_step as fs
 
     pool = fs.expand_v4(dec.em_pack, fr["state"], fr["cost"], ll[:, -1],
                         dec.params.acoustic_scale, dec.S, dec.M, dec.mbits)
     Bn = fr["state"].shape[0]
-    beam, lb = dec.params.beam, dec.params.lattice_beam
-    shim = SimpleNamespace(K2=dec.K2, R=dec.R, S=dec.S)
-    outs = [dec.record_buffers((Bn,)) for _ in range(2)]
-    scratch = fs.SelectScratch()
+    args = (*pool, fr, valid, dec.params.beam, dec.params.lattice_beam, dec.S, dec.mbits,
+            dec.K2, dec.R)
+    outs = [dec.record_buffers((Bn,)) for _ in range(3)]
+    scratch, p_scratch = fs.SelectScratch(), pfs.SelectScratch()
+    stats = torch.zeros((Bn, 3), dtype=torch.int32, device=dec.device)
 
     def parent():
-        cb, order = torch.sort(pool[0], dim=1, stable=True)
-        order = order[:, :max(dec.R, min(cb.shape[1], dec.K2))]
-        sA = (cb, pvit._take(pool[1], order), pvit._take(pool[2], order))
-        return pfs.select_tail_v4(*pvit.BatchViterbi._rank_v4(shim, sA), fr, valid, beam, lb,
-                                  dec.S, dec.mbits, outs[0])
+        return pfs.select_v4(*args, outs[0], scratch=p_scratch)
 
     def change():
-        return fs.select_v4(*pool, fr, valid, beam, lb, dec.S, dec.mbits, dec.K2, dec.R,
-                            outs[1], scratch=scratch)
+        return fs.select_v4(*args, outs[1], scratch=scratch)
 
-    (pf, prec), (cf, crec) = parent(), change()
+    (pf, prec), (cf, crec) = parent(), fs.select_v4(*args, outs[1], scratch=scratch,
+                                                    stats=stats)
+    qf, qrec = fs.select_v4_plain(*args, outs[2])
     torch.cuda.synchronize()
-    for what, a, b in (("frontier", pf, cf), ("records", prec, crec)):
+    for what, a, b, c in (("frontier", pf, cf, qf), ("records", prec, crec, qrec)):
         for k in a:
-            if not torch.equal(cs.bits(torch, a[k]), cs.bits(torch, b[k])):
-                raise AssertionError(f"{name}: parent and select_v4 differ at {what}[{k}]")
+            if not (torch.equal(cs.bits(torch, a[k]), cs.bits(torch, b[k]))
+                    and torch.equal(cs.bits(torch, b[k]), cs.bits(torch, c[k]))):
+                raise AssertionError(f"{name}: parent, select_v4 and plain differ at {what}[{k}]")
     times = {"parent_ms": [], "select_v4_ms": []}
     for _ in range(2):
         for key, fn in (("parent_ms", parent), ("select_v4_ms", change),
                         ("select_v4_ms", change), ("parent_ms", parent)):
             times[key].append(cs.event_ms(torch, fn))
+    times["torch_sort_ms"] = cs.event_ms(torch, lambda: torch.sort(pool[0], dim=1, stable=True))
     kept = int(torch.isfinite(cf["cost"]).sum())
     live = int((fr["state"] != dec.S).sum())
+    st = stats.cpu().tolist()
     cs.log(f"{name} B={Bn} K={dec.K} M={dec.M} K2={dec.K2} R={dec.R}, {live} live tokens, "
-           f"{kept} kept: bit-equal; parent (3 torch sorts + gathers + select_tail_v4) "
+           f"{kept} kept: bit-equal (parent, select_v4, plain); parent "
            f"{json.dumps([round(t, 6) for t in times['parent_ms']])} ms, select_v4 "
-           f"{json.dumps([round(t, 6) for t in times['select_v4_ms']])} ms")
+           f"{json.dumps([round(t, 6) for t in times['select_v4_ms']])} ms, stable torch.sort "
+           f"of the pool {times['torch_sort_ms']:.6f} ms; per channel (list, in range, "
+           f"winners) {json.dumps(st if Bn <= 4 else st[:4] + ['...'])}, list max "
+           f"{max(s[0] for s in st)}, in range max {max(s[1] for s in st)}")
     return times
 
 
@@ -97,8 +101,9 @@ def main() -> int:
         raise SystemExit("select_vs_parent.py needs a CUDA device; none is visible")
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    from vosk_tpu_torch.ops.viterbi import BatchViterbi
 
-    pfs, pvit = load_parent(Path(sys.argv[1]).resolve())
+    pfs = load_parent(Path(sys.argv[1]).resolve())
     if not (ROOT / "core" / "libvosk_tpu_core.so").exists():  # the serving model finishes there
         subprocess.run(["make", "-C", str(ROOT / "core"), "libvosk_tpu_core.so"], check=True,
                        stdout=sys.stderr)
@@ -121,14 +126,24 @@ def main() -> int:
         for ll in chunks:
             fr, _, _, _ = dec.decode_chunk(fr, ll, valid)
         fr, _, _, _ = dec.decode_chunk(fr, chunks[2][:, :6], valid[:, :6])
-        out["b32"] = compare(torch, cs, pfs, pvit, "batch", dec, fr, chunks[2], valid[:, 6])
+        out["b32"] = compare(torch, cs, pfs, "batch", dec, fr, chunks[2], valid[:, 6])
+        out["b1"] = compare(torch, cs, pfs, "streaming", dec,
+                            {k: v[:1].contiguous() for k, v in fr.items()}, chunks[2][:1],
+                            valid[:1, 6])
         ones = torch.ones(cs.B, dtype=torch.bool, device=dev)
         fr, ll = cs.loaded_frame(torch, bm)
-        out["loaded"] = compare(torch, cs, pfs, pvit, "loaded", dec, fr, ll, ones)
-        del bm, dec
-        _, _, (d_main, _) = cs.phase_split(torch, tmp)
+        out["loaded"] = compare(torch, cs, pfs, "loaded", dec, fr, ll, ones)
+        d10 = BatchViterbi(dec.graph, dataclasses.replace(dec.params, max_active=10_000),
+                           silence_pdfs=dec.silence_pdfs, device=dev)
+        fr, ll = cs.loaded_frame(torch, bm, dec=d10)
+        out["loaded_k10000"] = compare(torch, cs, pfs, "loaded max-active 10000", d10, fr, ll,
+                                       ones)
+        del bm, dec, d10
+        _, _, (d_main, d_gram) = cs.phase_split(torch, tmp)
         fr, ll, v1 = cs.real_frame(torch, d_main, P, cs.SEED + 9)
-        out["split"] = compare(torch, cs, pfs, pvit, "split", d_main, fr, ll, v1)
+        out["split"] = compare(torch, cs, pfs, "split", d_main, fr, ll, v1)
+        fr, ll, v1 = cs.real_frame(torch, d_gram, P, cs.SEED + 10)
+        out["grammar"] = compare(torch, cs, pfs, "grammar", d_gram, fr, ll, v1)
     cs.log(json.dumps(out))
     return 0
 

@@ -217,16 +217,20 @@ def test_select_kernel_matches_plain_real_frames(cuda_device, realistic_graph, B
     assert (dec.R > dec.K) == (K < 2048)
 
 
-def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad):
+def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad, states=None):
     """A pool [B, K*M] as expand writes it: costs on `levels` quantised
     values (runs of equal keys across the K2 and R cuts), a share `pad` of
-    padding slots (BIG, state S), next states drawn from `n_states`;
-    channel 1 masked, channel 2 all padding, channel 3 all at +inf."""
+    padding slots (BIG, state S), next states drawn from `n_states` (or
+    states(rng, B, E)); channel 1 masked, channel 2 all padding, channel 3
+    all at +inf."""
     E = K * M
     q = rng.integers(0, levels, (B, E))
     cost = torch.from_numpy((q * step - 2.0).astype(np.float32))
     cb = frame_step.cost_bits(cost).numpy().copy()
-    nsm = rng.choice(S, n_states, replace=False)[rng.integers(0, n_states, (B, E))]
+    if states is None:
+        nsm = rng.choice(S, n_states, replace=False)[rng.integers(0, n_states, (B, E))]
+    else:
+        nsm = states(rng, B, E)
     padded = rng.random((B, E)) < pad
     cb[padded], nsm[padded] = frame_step.BIG_I32, S
     valid = np.ones(B, bool)
@@ -242,6 +246,13 @@ def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad):
             torch.from_numpy(valid), mbits)
 
 
+def _random_frontier(rng, B, K, S, device):
+    fr = {"state": rng.integers(0, S, (B, K)).astype(np.int32),
+          "cost": rng.standard_normal((B, K)).astype(np.float32),
+          "tsil": rng.integers(0, 1 << 22, (B, K)).astype(np.int32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in fr.items()}
+
+
 @pytest.mark.parametrize("B,K,M,R,levels,step,n_states,pad,beams", [
     (4, 256, 4, 512, 40, 0.5, 100, 0.2, (10.0, 6.0)),       # ties across K2 = R = 512
     (4, 2048, 4, 2048, 300, 0.05, 900, 0.2, (10.0, 6.0)),   # R = K
@@ -250,6 +261,12 @@ def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad):
     (2, 7000, 4, 7000, 3, 0.5, 3000, 0.0, (1e3, 1e3)),      # three runs of ~9000 equal keys
     (1, 7000, 266, 7000, 500, 0.05, 20000, 0.97, (13.0, 6.0)),  # split-graph width, padded
     (4, 124, 266, 252, 100, 0.1, 300, 0.9, (13.0, 6.0)),    # grammar shape: R > K
+    # ties straddle the R cut and the K2 cut, each on its own (R = K < K2)
+    (4, 7000, 4, 7000, 7, 0.5, 20000, 0.1, (1e3, 1e3)),
+    # B = 3, 32 and 33: as many channels as the card holds clusters, and more
+    (3, 7000, 4, 7000, 400, 0.05, 5000, 0.2, (13.0, 6.0)),
+    (32, 7000, 4, 7000, 40, 0.25, 20000, 0.1, (1e3, 1e3)),
+    (33, 7000, 4, 7000, 400, 0.05, 5000, 0.2, (13.0, 6.0)),
     # max-active 10,000: K2 = 20,000 ranked in global scratch
     (4, 10000, 4, 10000, 3000, 0.01, 20000, 0.2, (3.0, 2.0)),   # a narrow beam
     (1, 10000, 4, 10000, 40, 0.25, 25000, 0.1, (1e3, 1e3)),     # all in range: radix cut
@@ -259,26 +276,98 @@ def test_select_kernel_matches_plain_tie_heavy(cuda_device, B, K, M, R, levels, 
     rng = np.random.default_rng(K + M + levels)
     S = 30000
     pool, valid, mbits = _tie_pool(rng, B, K, M, S, levels, step, n_states, pad)
-    fr = {"state": torch.from_numpy(rng.integers(0, S, (B, K)).astype(np.int32)),
-          "cost": torch.from_numpy(rng.standard_normal((B, K)).astype(np.float32)),
-          "tsil": torch.from_numpy(rng.integers(0, 1 << 22, (B, K)).astype(np.int32))}
-    fr = {k: v.to(cuda_device) for k, v in fr.items()}
+    fr = _random_frontier(rng, B, K, S, cuda_device)
     pool = [x.to(cuda_device) for x in pool]
     pf, prec = _same_selection(cuda_device, pool, fr, valid.to(cuda_device), *beams, S, mbits,
                                2 * K, R)
     assert torch.isfinite(pf["cost"][0]).any() and (prec["lat_pm"][0] != -1).any()
 
 
+def _colliding_states(S, n):
+    """n states whose 32-bit hash (the kernel's: state * 0x9E3779B1 mod
+    2^32, scaled onto the table by its top bits) lies in one of three
+    windows of 2^17, so that each window's states share one or two home
+    slots in any table of up to 2^15 slots."""
+    s = np.arange(S, dtype=np.uint64)
+    h = (s * np.uint64(0x9E3779B1)) & np.uint64(0xFFFFFFFF)
+    w = np.uint64(1 << 17)
+    pick = (h < w) | ((h >= np.uint64(1 << 31)) & (h < np.uint64(1 << 31) + w)) | (
+        h >= np.uint64((1 << 32) - (1 << 17)))
+    return np.nonzero(pick)[0][:n]
+
+
+@pytest.mark.parametrize("kind", ["one_state", "distinct", "collide"])
+def test_select_kernel_hash_heavy(cuda_device, kind):
+    """The dedup table at its extremes: all of D on one next state, every
+    candidate on its own state, and states that share their hash slots
+    (long probe runs that cross the cluster's CTAs)."""
+    B, K, M, S = 4, 7000, 4, 1 << 24
+    same = _colliding_states(S, 1000)
+    pick = {"one_state": lambda rng, b, e: np.full((b, e), 12345),
+            "distinct": lambda rng, b, e: np.stack([rng.permutation(S)[:e] for _ in range(b)]),
+            "collide": lambda rng, b, e: same[rng.integers(0, same.size, (b, e))]}[kind]
+    rng = np.random.default_rng(len(kind))
+    pool, valid, mbits = _tie_pool(rng, B, K, M, S, 400, 0.05, 0, 0.2, states=pick)
+    fr = _random_frontier(rng, B, K, S, cuda_device)
+    pool = [x.to(cuda_device) for x in pool]
+    pf, _ = _same_selection(cuda_device, pool, fr, valid.to(cuda_device), 13.0, 6.0, S, mbits,
+                            2 * K, K)
+    kept = torch.isfinite(pf["cost"][0]).sum().item()
+    assert kept == 1 if kind == "one_state" else kept > 900
+
+
+def test_frame_step_replays_in_a_cuda_graph(cuda_device, realistic_graph):
+    """One frame step (expand, then select) captured in a CUDA graph after a
+    warm-up, replayed twice: bit-equal to the same step run eagerly (the
+    kernels launch on the capturing stream, allocate nothing and reset
+    their own counters)."""
+    dec = BatchViterbi(realistic_graph, DecodeParams(beam=13.0, max_active=2048,
+                                                     lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True, device=cuda_device)
+    B = 8
+    gen = torch.Generator().manual_seed(12)
+    ll = (torch.randn((B, 5, 64), generator=gen) * 0.5).to(cuda_device)
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(B), ll[:, :4])
+    valid = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    out = dec.record_buffers((B,))
+    llt = ll[:, 4].contiguous()
+
+    def step():
+        return dec._frame_step_v4(fr, llt, valid, out)
+
+    eager_f, eager_r = step()
+    eager = {**{f"frontier.{k}": v.clone() for k, v in eager_f.items()},
+             **{k: v.clone() for k, v in eager_r.items()}}
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        for _ in range(2):  # warm-up on the capturing stream: its scratch exists
+            step()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got_f, got_r = step()
+    for _ in range(2):
+        for v in (*got_f.values(), *got_r.values()):
+            v.fill_(-3)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = {**{f"frontier.{k}": v for k, v in got_f.items()}, **got_r}
+        for k, v in eager.items():
+            assert torch.equal(_bits(got[k]), _bits(v)), k
+    assert torch.isfinite(eager["frontier.cost"]).sum() > B * 10
+
+
 def test_decoder_above_shared_cap_bit_equal(cuda_device, realistic_graph):
-    """max-active 10,000 on a 20,000-state graph: K2 = 20,000 candidates are
-    more than select_v4 ranks in shared memory, so its second kernel ranks
-    in global scratch; kernels == plain over chunks of flat scores that fill
+    """max-active 10,000 on a 20,000-state graph: its K = R = 10,000 keys
+    are more than select_v4 sorts in shared memory, so its second kernel
+    sorts and hashes in global scratch; kernels == plain over chunks of flat scores that fill
     the frontier, on one decoder (its scratch reused across frames)."""
     dec = BatchViterbi(realistic_graph,
                        DecodeParams(beam=13.0, max_active=10000, lattice_beam=6.0),
                        silence_pdfs=np.array([0, 1]), optimize_graph=True,
                        device=cuda_device)
-    assert dec.K == 10000 and max(dec.K2, dec.R) > frame_step.SELECT_SHARED_CAP
+    assert dec.K == 10000 and frame_step.select_in_global(dec.E, dec.K, dec.K2, dec.R)
     B, T = 2, 10
     gen = torch.Generator().manual_seed(6)
     chunks = [torch.randn((B, T, 64), generator=gen) * s for s in (0.1, 0.1, 2.0)]

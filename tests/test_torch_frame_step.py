@@ -327,6 +327,10 @@ def _tie_pool(rng, td, B, E, levels, step, n_states):
     (256, 256, 12, 1.5, 60),      # a pool smaller than K2 (and R), as at M = 1
     (2048, 8192, 300, 0.05, 900),  # R = K = 2048, K2 = 4096
     (256, 2048, 2000, 0.001, 400),  # a run past the beam, few ties
+    # R = K = 2048 < K2 = 4096: runs of ~330 equal keys straddle both cuts
+    (2048, 8192, 20, 0.05, 900),
+    (2048, 8192, 20, 0.05, 8),    # and all of D falls on 8 states
+    (256, 1024, 40, 0.5, 8),      # K2 = R = 512 on 8 states
 ])
 def test_select_spec_bit_equal_on_tie_heavy_pools(realistic, K, E, levels, step, n_states):
     jd, td = _decoders(realistic, K)
@@ -434,33 +438,41 @@ def test_select_wrapper_rejects(realistic, bad):
         select_v4(*pool, fr, valid, 10.0, 6.0, td.S, td.mbits, td.K2, td.R, out)
 
 
-@pytest.mark.parametrize("K2,R,ranked_in_global", [
-    (512, 512, False), (16384, 7000, False), (20000, 10000, True), (16384, 16385, True)])
-def test_select_scratch_sizes_and_reuse(K2, R, ranked_in_global):
+@pytest.mark.parametrize("K,K2,R,in_global", [
+    (256, 512, 512, False), (8192, 16384, 7000, False), (10000, 20000, 10000, True),
+    (8192, 16384, 8193, True), (4096, 16385, 4096, True)])
+def test_select_scratch_sizes_and_reuse(K, K2, R, in_global):
     """select_v4's scratch: pass 1's counters set once (BIG, 0) and its
-    list [B * E]; pass 2's global buffers only past SELECT_SHARED_CAP
-    ranked candidates, at the kernel's sort sizes; reused per (device,
-    stream) and grown, never shrunk."""
+    list [B * E] of int32 candidate numbers; pass 2's global buffers (a row
+    of bucket keys per CTA, hash keys and values) only past SELECT_SORT_CAP
+    keys a sort or SELECT_TABLE_CAP slots, at the kernel's sizes; reused per
+    (device, stream) and grown, never shrunk."""
     sc = frame_step.SelectScratch()
     dev = torch.device("cpu")
     B, E = 3, 40000
-    buf = sc.buffers(dev, 7, B, E, K2, R)
+    buf = sc.buffers(dev, 7, B, E, K, K2, R)
     assert torch.equal(buf["best"], torch.full((B,), frame_step.BIG_I32, dtype=torch.int32))
     assert torch.equal(buf["count"], torch.zeros(B, dtype=torch.int32))
-    assert buf["list"].numel() == B * E and buf["list"].dtype == torch.int64
-    N = max(K2, R)
-    if ranked_in_global:
-        pow2 = 1 << (N - 1).bit_length()
-        assert (buf["x"].numel(), buf["y"].numel(), buf["w"].numel()) == (
-            B * pow2, B * N, B * (1 << (K2 - 1).bit_length()))
+    assert buf["list"].numel() == B * E and buf["list"].dtype == torch.int32
+    assert frame_step.select_in_global(E, K, K2, R) == in_global
+    slots = frame_step.select_table_slots(E, K2)
+    assert slots == max(1024, -(-5 * K2 // 4))  # at most 4/5 full
+    if in_global:
+        cap = -(-max(K, R) // 256) * 256
+        C = frame_step.SELECT_MAX_CLUSTER
+        assert (buf["s"].numel(), buf["tk"].numel(), buf["tv"].numel()) == (
+            B * C * cap, B * (slots + C), B * (slots + C))
+        assert buf["tk"].dtype == torch.int32 and buf["tv"].dtype == torch.int64
     else:
-        assert buf["x"] is None and buf["y"] is None and buf["w"] is None
-    same = sc.buffers(dev, 7, 2, E, K2, R)
+        assert all(buf[k] is None for k in ("s", "tk", "tv"))
+    assert frame_step.SelectScratch.nbytes(B, E, K, K2, R) == sum(
+        v.numel() * v.element_size() for v in buf.values() if v is not None)
+    same = sc.buffers(dev, 7, 2, E, K, K2, R)
     for k, v in buf.items():
         assert (v is None and same[k] is None) or v.data_ptr() == same[k].data_ptr(), k
-    grown = sc.buffers(dev, 7, 4, E, K2, R)
+    grown = sc.buffers(dev, 7, 4, E, K, K2, R)
     assert grown["list"].numel() == 4 * E and grown["best"].numel() == 4
-    assert sc.buffers(dev, 8, B, E, K2, R)["list"].data_ptr() != grown["list"].data_ptr()
+    assert sc.buffers(dev, 8, B, E, K, K2, R)["list"].data_ptr() != grown["list"].data_ptr()
 
 
 def test_decoder_owns_its_select_scratch(realistic):

@@ -18,12 +18,11 @@
 // at B = 32, K = 7000, M = 4 with every token live (arc rows 7.2 MB, three
 // [B, K*M] outputs 10.8 MB).  Select needs only the pool's keys (4 bytes a
 // candidate, 3.6 MB at B = 32), the payload of the candidates within reach
-// of the beams and its outputs, but its time is latency: one block per
-// channel runs three sorts, their block barriers and dependent loads one
-// after another, and at B = 1 the two launches and that chain are all of
-// it (PERF.md).  The source's three stable sorts of the whole pool and
-// their payload gathers moved many times the bytes, in about a dozen
-// launches.
+// of the beams and its outputs, but its time is latency: a chain of
+// dependent steps per channel (cuts, dedup, sorts), and at B = 1 the two
+// launches and that chain are all of it (PERF.md).  The source's three
+// stable sorts of the whole pool and their payload gathers moved many
+// times the bytes, in about a dozen launches.
 //
 // What the design does about it:
 //  * one pass each: the indices of the old gather never reach device
@@ -62,39 +61,69 @@
 //    candidate;
 //  * expand: a dead token (state S) reads no row and writes (BIG, S, prevm)
 //    directly: row S is all padding (w = +inf, next = S, sil = 0);
-//  * select needs no order of the whole pool.  Only candidates within
-//    best + beam can become kept frontier tokens, and only those within
-//    (best + beam) + lattice_beam kept lattice rows (f32 addition is
-//    monotone; best, the pool's smallest key, always wins its state).
-//    Pass 1 (grid of 4096-candidate tiles x B) reads each key once,
-//    folds the channel's minimum in with atomicMin, and appends the
-//    candidates within the range its own tile minimum gives (a superset
-//    of the channel's) to one list per channel through an atomic count;
-//    real frames keep a few hundred per channel of 28,000, and the padding
-//    slots of wide rows (1.86 M candidates a frame on a split graph) never
-//    leave their tile.  Pass 2 (one 1024-thread block per channel) takes
-//    the channel's minimum and range, gathers the in-range candidates,
-//    cuts them to the N = max(R, K2) first by (key, e) where more remain
-//    than its sort holds (the whole pool can be in range under load) with
-//    radix selects over the list: the key at the cut, then, where that
-//    key's run straddles the cut, the e at the run's rank, so ties go to
-//    the lowest e as the source's stable sort gives them and the list
-//    needs no order.  It then ranks with three bitonic sorts of 64-bit
-//    keys: (key, e) for the lattice rows and the dedup set, (state, rank)
-//    for the dedup, (key, state order) for the new frontier.  Each sort
-//    runs on tiles of 256 keys held in a warp's registers, with memory and
-//    a barrier only for the stages that cross tiles, and only warps with a
-//    tile take part.  Up to N = 16,384 (max-active 8,192) the keys live in
-//    192 KB of shared memory; above, in per-channel rows of global scratch
-//    (L2-resident at these sizes), with the same code.  It reads nsm, pm and the
-//    old tsil of those candidates only, and writes the frontier and the
-//    record rows once;
-//  * a thread-block cluster over a channel's pool was not needed: pass 1
-//    spreads the pool over the card, and pass 2 sorts what is left.
+//  * select follows what it computes, not the source's sorts.  Per channel,
+//    over the 64-bit order (cost key, e): D, the K2 smallest, is a set;
+//    each next state's winner is its smallest member of D; the winners
+//    ranked by (cost key, state) fill the frontier within the beam from
+//    the best one; the lattice rows are L, the R smallest, in order.  Only
+//    candidates within best + beam can become kept winners, and only those
+//    within (best + beam) + lattice_beam kept lattice rows (f32 addition is
+//    monotone; best, the pool's smallest key, always wins its state);
+//  * select pass 1 (grid of 4096-candidate tiles x B) reads each key once,
+//    folds the channel's minimum in with atomicMin, and appends the numbers
+//    e of the candidates within the range that the smaller of its tile's
+//    minimum and the channel's minimum so far gives (a superset of the
+//    channel's) to one int32 list per channel; the padding slots of wide
+//    rows (1.86 M candidates a frame on a split graph) never leave their
+//    tile;
+//  * select pass 2 runs a thread-block cluster per channel, launched with
+//    cudaLaunchKernelEx: C CTAs of 1024 threads, the most (up to 8) with
+//    which the card holds all B clusters at once
+//    (cudaOccupancyMaxActiveClusters; on H100: 8 at B = 1, 3 at B = 32),
+//    but no more than the pool has 4,096-candidate tiles, and at least 2.
+//    The CTAs split every walk of the list and of the table and meet at
+//    cluster barriers; through distributed shared memory they sum each
+//    other's histograms, share one hash table and fill each other's
+//    buckets:
+//     - the cuts D and L by radix select, only where the list is longer
+//       than min(K2, R) (or than 2,048, for the buckets): rounds of 11-bit
+//       digits of the key's offset from the best key (the in-range keys
+//       span few bits), then, where the run of equal keys at a cut
+//       straddles it, of e, so ties go to the lowest e as the source's
+//       stable sort gives them; one walk a round serves both cuts; the
+//       first also counts what is in range and keeps each CTA's in-range
+//       entries in its shared memory for the later walks;
+//     - the dedup without a sort: D's candidates within the beam whose next
+//       state is not S go into an open-addressing table keyed by state
+//       (5/4 of K2 slots, CTA r holding a contiguous share, linear
+//       probing), its value the smallest (key << 32 | e); its entries are
+//       the winners.  On a long list each candidate is first sent to the
+//       inbox of the CTA that holds its state's home slot, which inserts
+//       it with its own shared-memory atomics: a 64-bit atomic minimum
+//       into another CTA's memory loses updates on H100, and a remote
+//       compare-and-swap loop costs several round trips;
+//     - the winners ranked by (key, state): where a cut at K is needed, by
+//       radix select as above, or, on a long list whose buckets hold them
+//       all, none: every winner is ranked and the ranks past K dropped;
+//     - ranking without a global sort: on a long list, L and W are split
+//       into C buckets by ranges of the first digit, chosen from its
+//       histogram so that each holds about 1 / C of them, one bucket per
+//       CTA; a short one keeps W in rank 0 and L in rank 1.  A CTA ranks
+//       its bucket by a counting sort on the first digit and a count
+//       within each digit's group (a few keys under load), or, where a
+//       group holds more than 128, by sorting tiles of 256 keys in a
+//       warp's registers and a binary search per tile; each row is written
+//       at the bucket's offset plus its rank: the frontier and its records
+//       (e by a table lookup, then pm and the old tsil[prev]), the lattice
+//       rows as if kept, then, once the cluster's worst finite kept cost
+//       wk is known, those above wk + lattice_beam dropped;
+//     - buckets of up to 8,192 keys and tables of up to 20,480 slots
+//       (max-active up to 8,192) live in shared memory; larger ones in
+//       per-channel rows of global scratch, with the same code.
 // Pass 2 resets pass 1's per-channel minimum and count for the next call
-// once it has read them; the wrapper sets them once, at allocation.  The
-// shared-memory opt-in of a kernel is set once per device.
-//
+// once every CTA has read them; the wrapper sets them once, at allocation.
+// The shared-memory opt-in of a kernel is set once per device.
+
 // Bit parity with the JAX decoder on the CPU: the cost is
 // fma(-scale, ac, tok_cost + w) with both roundings explicit (XLA contracts
 // the source's expression the same way; no plain * or + that nvcc could
@@ -112,20 +141,32 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 
+#include <cooperative_groups.h>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 256;             // select_v4 pass 1
 constexpr int kScanPer = 16;                   // candidates per pass-1 thread
 constexpr int kTile = kScanThreads * kScanPer;  // candidates per pass-1 block
-constexpr int kRankThreads = 1024;             // select_v4 pass 2: one block per channel
-constexpr int kCap = 16384;                    // candidates pass 2 sorts in shared memory
-constexpr int kRankBits = 14;                  // log2(kCap)
-constexpr size_t kRankSmem = static_cast<size_t>(kCap) * (8 + 4);
+constexpr int kSelThreads = 1024;             // select_v4 pass 2: threads of each CTA
+constexpr int kMaxCluster = 8;                 // CTAs of a channel's cluster, at most
+constexpr int kSortCap = 8192;                 // keys a bucket holds in shared memory
+constexpr int kTableCap = 20480;               // hash slots a cluster holds in shared memory
+constexpr int kMinSlots = 1024;                // hash slots of a channel, at least
+constexpr int kHeavyList = 2048;               // list length from which the sorts take buckets
 constexpr int kHistBits = 11;                  // radix digit of the cuts
-constexpr size_t kHistSmem = static_cast<size_t>(4) << kHistBits;  // histogram, global pass 2
+constexpr int kBins = 1 << kHistBits;
+constexpr size_t kHistBytes = static_cast<size_t>(4) * kBins * 4;  // [parity][target][bin]
+constexpr int kWalkPer = 4;                    // list entries per thread per step of a walk
+constexpr int kInbox = static_cast<int>(kHistBytes / 8);  // entries of a CTA's table inbox
+constexpr int kGroup = 128;                    // keys of one first digit ranked by counting
+static_assert(kBins == 2 * kSelThreads, "cut_advance sums two bins a thread");
 constexpr int kMaxDevices = 64;
 constexpr uint64_t kNone = ~0ull;              // sorts after every real sort key
 constexpr int32_t kNoKey = -2147483647 - 1;
@@ -140,6 +181,22 @@ constexpr int32_t kTsilMask = (1 << 21) - 1;
 constexpr int kPdfWords = 1 << 14;             // packed16: pdf ids below 2^14
 constexpr int kStageReserve = 64;              // the expand kernel's static shared memory
 constexpr int kStaticSmemLimit = 48 * 1024;
+
+// Pass 2's dynamic shared memory: the histograms, then (shared-memory
+// variant) this CTA's table slots (values, keys) and its bucket of cap keys,
+// then a cache of its in-range list entries (whatever room is left).
+struct SelectSmem {
+  size_t tv, tk, buf, cache;
+};
+
+__host__ __device__ inline SelectSmem select_smem(int per, int cap, bool global) {
+  SelectSmem m;
+  m.tv = kHistBytes;
+  m.tk = m.tv + static_cast<size_t>(per) * 8;
+  m.buf = (m.tk + static_cast<size_t>(per) * 4 + 15) & ~static_cast<size_t>(15);
+  m.cache = global ? kHistBytes : m.buf + static_cast<size_t>(cap) * 8;
+  return m;
+}
 
 __device__ __forceinline__ int32_t cost_key(float c) {
   const int32_t b = __float_as_int(c);
@@ -434,69 +491,46 @@ __device__ __forceinline__ void tile_store(const uint64_t (&v)[8], uint64_t* a, 
   for (int r = 0; r < 8; ++r) a[sw(g0 + r)] = v[r];
 }
 
-// A barrier for the first `threads` threads of the block (a multiple of
-// 32); barrier 0 is __syncthreads.
-__device__ __forceinline__ void sync_first(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
-}
+// The size of a buffer that ranks n keys: whole tiles of 256.
+__host__ __device__ inline int rank_size(int n) { return (n + 255) / 256 * 256; }
 
-// Sort a[0, n) ascending into rank order a[sw(i)], n a power of two of at
-// least 256, whatever the order of a[0, n) on entry: a bitonic
-// network over tiles of 256 keys.  Each warp sorts its tiles in registers
-// (phases up to 256), then each later phase runs its stages of j >= 256
-// over a (shared or global memory) and the rest in registers again, so
-// that only log2(n / 256) (log2(n / 256) + 1) / 2 stages touch memory and
-// a block barrier.  Only warps with a tile take part.  Every thread of the
-// block calls it; it ends with __syncthreads.
-__device__ void bitonic_sort(uint64_t* a, int n) {
-  const int tiles = n / 256;
-  const int warps = min(tiles, static_cast<int>(blockDim.x) / 32), active = warps * 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < warps) {
+// fn(rank, key) for each key of a[0, n), rank its place in ascending order
+// (the keys are distinct), without a full sort: each warp sorts tiles of
+// 256 keys in its registers (the first eight phases of a bitonic network,
+// every tile ascending), then each key's rank is the number of keys below
+// it in every tile, one binary search a tile.  a[n, rank_size(n)) is
+// overwritten.  Every thread of the block calls it.
+template <class F>
+__device__ void rank_keys(uint64_t* a, int n, F fn) {
+  const int tiles = (n + 255) / 256;
+  for (int i = n + threadIdx.x; i < tiles * 256; i += blockDim.x) a[i] = kNone;
+  __syncthreads();
+  const int warps = static_cast<int>(blockDim.x) / 32, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int t = warp; t < tiles; t += warps) {
     uint64_t v[8];
-    for (int t = warp; t < tiles; t += warps) {
-      const int g0 = t * 256 + lane * 8;
-      tile_load(v, a, g0);
-      for (int k = 2; k <= 256; k <<= 1) tile_stages(v, g0, k, k >> 1);
-      tile_store(v, a, g0);
-    }
-    for (int k = 512; k <= n; k <<= 1) {
-      for (int j = k >> 1; j >= 256; j >>= 1) {
-        sync_first(active);
-        for (int i = threadIdx.x; i < n / 2; i += active) {
-          const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1)), hi = lo + j;
-          const uint64_t p = a[sw(lo)], q = a[sw(hi)];
-          if ((p > q) == ((lo & k) == 0)) {
-            a[sw(lo)] = q;
-            a[sw(hi)] = p;
-          }
-        }
-      }
-      sync_first(active);
-      for (int t = warp; t < tiles; t += warps) {
-        const int g0 = t * 256 + lane * 8;
-        tile_load(v, a, g0);
-        tile_stages(v, g0, k, 128);
-        tile_store(v, a, g0);
-      }
-    }
+    const int g0 = t * 256 + lane * 8;
+    tile_load(v, a, g0);
+    for (int k = 2; k <= 256; k <<= 1) tile_stages(v, lane * 8, k, k >> 1);
+    tile_store(v, a, g0);
   }
   __syncthreads();
-}
-
-// The sort size for n keys: a power of two of at least one tile (256).
-__device__ __forceinline__ int sort_size(int n) {
-  int p = 256;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// Pad a[n, sort_size(n)) with kNone and sort.  Called by every thread.
-__device__ void pad_and_sort(uint64_t* a, int n) {
-  const int p = sort_size(n);
-  for (int i = n + threadIdx.x; i < p; i += blockDim.x) a[i] = kNone;
+  for (int i = threadIdx.x; i < tiles * 256; i += blockDim.x) {
+    const uint64_t x = a[i];  // the tiles' slots in any order; padding skipped
+    if (x == kNone) continue;
+    int rank = 0;
+    for (int t = 0; t < tiles; ++t) {
+      const int t0 = t * 256;
+      int c = 0;  // keys of tile t below x
+#pragma unroll
+      for (int step = 128; step > 0; step >>= 1)
+        if (a[sw(t0 + c + step - 1)] < x) c += step;
+      c += a[sw(t0 + c)] < x;
+      rank += c;
+    }
+    fn(rank, x);
+  }
   __syncthreads();
-  bitonic_sort(a, p);
 }
 
 // A slot in an array filled through *count for each thread whose `keep`
@@ -512,17 +546,19 @@ __device__ __forceinline__ int warp_append(bool keep, int* count) {
 
 // Pass 1, grid (tiles of kTile candidates, B): the channel's smallest key
 // (atomicMin into best[b]), and per tile the candidates within the range
-// that the tile's own minimum gives, appended to the channel's list as
-// sort keys (unsigned key << 32 | e) through count[b].  The tile minimum
-// is at least the channel's best, so the list holds every candidate of the
+// that the smaller of the tile's own minimum and the channel's minimum so
+// far gives, appended to the channel's list as candidate numbers e through
+// count[b] (pass 2 reads their keys back from cbits).  Both minima are at
+// least the channel's best, so the list holds every candidate of the
 // channel that is in its range.  Pass 2 resets best[b] and count[b].
 __global__ void __launch_bounds__(kScanThreads)
 select_v4_scan_kernel(const int32_t* __restrict__ cbits, long long E,
                       const uint8_t* __restrict__ valid, long long valid_stride, float beam,
                       float lattice_beam, int32_t* __restrict__ best, int32_t* __restrict__ count,
-                      uint64_t* __restrict__ list) {
+                      uint32_t* __restrict__ list) {
   __shared__ int s_warp[32];
   __shared__ int s_base;
+  __shared__ int32_t s_best;
   const int b = blockIdx.y, t = blockIdx.x;
   if (valid[static_cast<long long>(b) * valid_stride] == 0) return;  // pass 2: identity rows
   const int32_t* row = cbits + static_cast<long long>(b) * E;
@@ -545,82 +581,290 @@ select_v4_scan_kernel(const int32_t* __restrict__ cbits, long long E,
 #pragma unroll
   for (int q = 1; q < kScanPer; ++q) mn = min(mn, key[q]);
   mn = block_min<kScanThreads>(mn, s_warp);
-  const uint32_t lim = thresholds(mn, beam, lattice_beam).range;
+  if (threadIdx.x == 0) s_best = mn < kBig ? min(mn, atomicMin(best + b, mn)) : mn;
+  __syncthreads();
+  const uint32_t lim = thresholds(s_best, beam, lattice_beam).range;
   int n = 0;
 #pragma unroll
   for (int q = 0; q < kScanPer; ++q) n += ukey(key[q]) <= lim;
   int total;
   int p = block_excl_scan<kScanThreads>(n, s_warp, &total);
-  if (threadIdx.x == 0) {
-    if (mn < kBig) atomicMin(best + b, mn);
-    s_base = total ? atomicAdd(count + b, total) : 0;
-  }
+  if (threadIdx.x == 0) s_base = total ? atomicAdd(count + b, total) : 0;
   __syncthreads();
-  uint64_t* out = list + static_cast<long long>(b) * E + s_base;
+  uint32_t* out = list + static_cast<long long>(b) * E + s_base;
 #pragma unroll
   for (int q = 0; q < kScanPer; ++q)
-    if (ukey(key[q]) <= lim)
-      out[p++] = (static_cast<uint64_t>(ukey(key[q])) << 32) | static_cast<uint32_t>(e0 + q);
+    if (ukey(key[q]) <= lim) out[p++] = static_cast<uint32_t>(e0 + q);
 }
 
-// Pass 2, one block per channel: everything else.
-//  1. the channel's best key from pass 1, and its thresholds;
-//  2. the in-range candidates from the channel's list; if more than the
-//     sort holds, radix selects find the key at rank N = max(R, K2) and,
-//     where its run straddles the cut, the e at the run's rank, and the
-//     list keeps the N first in (key, e) order: every key below the cut,
-//     and the lowest e among the equal keys at it;
-//  3. sort them by (key, e): rank i is pool position i, so the lattice
-//     rows are ranks [0, R) and the dedup set ranks [0, K2);
-//  4. the dedup set's candidates within the beam, keyed (next state,
-//     rank), sorted: the first of each state is its winner;
-//  5. the winners keyed (key, position p in state order), sorted: slot
-//     j of the new frontier is the j-th, which is the source's (cbits, n)
-//     order, all of them within the beam;
-//  6. write the frontier and the frontier records, the worst finite kept
-//     cost wk, then the lattice rows against wk + lattice_beam.
-// kGlobal = false (N <= kCap, max-active up to 8,192): the sort keys x
-// and the e of each rank y live in shared memory, the winners overwrite
-// x and carry their rank in the key's low kRankBits.  kGlobal = true
-// (larger N): x [sort_size(N)], y [N] and the winners w [sort_size(K2)]
-// are the channel's rows of global scratch (in L2 at these sizes); a
-// winner's rank is read back from x at p, which stays intact.
-// In-place compactions run in rounds of one element per thread: a round
-// writes only below the elements it has read, and reads are done before
-// the scan that places the writes.
+// A 64-bit load through L2 only: table slots that other CTAs update.
+__device__ __forceinline__ uint64_t ld_cg(const uint64_t* p) {
+  return __ldcg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+// *p = min(*p, v) for a table value, which may lie in another CTA's shared
+// memory.  Hopper's 64-bit atomic minimum loses updates there (measured on
+// H100: 256 threads of one CTA into another's word kept a late value, where
+// compare-and-swap and the 32-bit minimum kept the least), so the minimum
+// is a compare-and-swap loop; it ends once *p is at most v.
+__device__ __forceinline__ void atomic_min64(uint64_t* p, uint64_t v) {
+  auto* q = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(q);
+  while (v < old) {
+    const unsigned long long seen = atomicCAS(q, old, static_cast<unsigned long long>(v));
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
+// One order statistic of a channel's items (u, low): u an unsigned cost
+// key, low a candidate number e or a next state.  It keeps the items
+// (u, low) <= (key, low), the n smallest in that order.  Found digit by
+// digit from per-CTA histograms: first the digits of u - base (base the
+// channel's best key, so the in-range keys span few bits), then, where the
+// run of items at the cut key straddles the cut, the digits of low among
+// that run, so ties go to the lowest e (the source's stable sort) or the
+// lowest state.
+struct Cut {
+  int field;        // 0: digits of u - base; 1: digits of low where u == key; 2: found
+  int top;          // bits of the field still open
+  uint32_t prefix;  // the field's digits fixed so far
+  int k0;           // the rank sought among the items that share them
+  uint32_t key, low;
+};
+
+__device__ __forceinline__ Cut cut_all() { return {2, 0, 0u, 0, 0xFFFFFFFFu, 0xFFFFFFFFu}; }
+
+__device__ __forceinline__ Cut cut_at(int n, int top) { return {0, top, 0u, n - 1, 0u, 0u}; }
+
+__device__ __forceinline__ bool cut_keeps(const Cut& c, uint32_t u, uint32_t low) {
+  return u < c.key || (u == c.key && low <= c.low);
+}
+
+// The histogram bin of item (u, low) in the cut's next digit, or -1.
+__device__ __forceinline__ int cut_bin(const Cut& c, uint32_t u, uint32_t low, uint32_t base) {
+  uint32_t f;
+  if (c.field == 0)
+    f = u - base;
+  else if (c.field == 1 && u == c.key)
+    f = low;
+  else
+    return -1;
+  if ((static_cast<uint64_t>(f) >> c.top) != (static_cast<uint64_t>(c.prefix) >> c.top)) return -1;
+  const int nbits = min(kHistBits, c.top);
+  return static_cast<int>((f >> (c.top - nbits)) & ((1u << nbits) - 1u));
+}
+
+// Count bin in histogram h (shared memory), unless it is -1.
+__device__ __forceinline__ void hist_add(int* h, int bin) {
+  if (bin >= 0) atomicAdd(h + bin, 1);
+}
+
+// The cluster's sum of histogram h (at the same offset in every CTA's
+// shared memory) over `bins` bins: thread t's bins 2t and 2t + 1 into h2,
+// and the count in all bins before them returned.  Every thread of the
+// block calls it after the barrier that completes h everywhere.
+__device__ int hist_sum(cg::cluster_group& cluster, int* h, int bins, int (&h2)[2],
+                        int* s_warp) {
+  const unsigned C = cluster.num_blocks();
+  const int d0 = 2 * static_cast<int>(threadIdx.x);  // kBins = 2 kSelThreads
+  h2[0] = h2[1] = 0;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (d0 + q < bins)
+      for (unsigned r = 0; r < C; ++r) h2[q] += cluster.map_shared_rank(h, r)[d0 + q];
+  int tot;
+  return block_excl_scan<kSelThreads>(h2[0] + h2[1], s_warp, &tot);
+}
+
+// The number of bins of the cut's next digit.
+__device__ __forceinline__ int cut_bins(const Cut& c) { return 1 << min(kHistBits, c.top); }
+
+// Fix the cut's next digit from the cluster's histogram of it (hist_sum's
+// acc and h2).  Every thread of every CTA calls it with the same c and
+// histogram, and every CTA reaches the same c.
+__device__ void cut_advance(Cut& c, int acc, const int (&h2)[2], uint32_t base, int low_top,
+                            int* s_int) {
+  const int nbits = min(kHistBits, c.top), shift = c.top - nbits;
+  const int d0 = 2 * static_cast<int>(threadIdx.x);
+  const int cnt = h2[0] + h2[1];
+  if (acc <= c.k0 && c.k0 < acc + cnt) {
+    const int q = c.k0 < acc + h2[0] ? 0 : 1;
+    s_int[0] = d0 + q;
+    s_int[1] = c.k0 - acc - (q ? h2[0] : 0);
+    s_int[2] = h2[q];
+  }
+  __syncthreads();
+  const int d = s_int[0], k0 = s_int[1], n_eq = s_int[2];
+  __syncthreads();
+  c.prefix |= static_cast<uint32_t>(d) << shift;
+  c.k0 = k0;
+  c.top = shift;
+  if (shift == 0) {
+    if (c.field == 0) {
+      c.key = base + c.prefix;
+      if (n_eq > k0 + 1) {  // the run at the cut key straddles it: rank by low
+        c.field = 1;
+        c.top = low_top;
+        c.prefix = 0;
+      } else {
+        c.field = 2;
+        c.low = 0xFFFFFFFFu;
+      }
+    } else {
+      c.low = c.prefix;
+      c.field = 2;
+    }
+  }
+}
+
+// Bucket bounds from the cluster's histogram of the first digit (hist_sum's
+// acc and h2) over items whose first n in order are to be sorted: lo[k], k
+// = 1 .. C - 1, is the first digit before which k n / C of them lie, so
+// bucket k holds digits [lo[k], lo[k + 1]) and about n / C items; pre[k]
+// gets the number of items before lo[k].  lo and pre are 0 on entry; the
+// caller synchronises before reading them.
+__device__ void bucket_bounds(int* lo, int* pre, int acc, const int (&h2)[2], int n, int C) {
+  const int d0 = 2 * static_cast<int>(threadIdx.x);
+  for (int k = 1; k < C; ++k) {
+    const int t = static_cast<int>(static_cast<long long>(k) * n / C);
+    if (acc < t && t <= acc + h2[0]) {
+      lo[k] = d0 + 1;
+      pre[k] = acc + h2[0];
+    } else if (acc + h2[0] < t && t <= acc + h2[0] + h2[1]) {
+      lo[k] = d0 + 2;
+      pre[k] = acc + h2[0] + h2[1];
+    }
+  }
+}
+
+// The bucket of first digit d: the number of bounds lo[1 .. C - 1] at or
+// below it.
+__device__ __forceinline__ int bucket_of(const int* lo, int C, int d) {
+  int q = 0;
+  for (int k = 1; k < C; ++k) q += lo[k] <= d;
+  return q;
+}
+
+// Add v over the block into *dst (shared memory).  Every lane calls it.
+__device__ __forceinline__ void block_add(int v, int* dst) {
+  v = __reduce_add_sync(0xFFFFFFFFu, v);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, v);
+}
+
+// The sum over the cluster's CTAs of rank < upto of *local (an int in
+// shared memory).  Every thread calls it after the barrier that completes
+// *local everywhere.
+__device__ int cluster_reduce(cg::cluster_group& cluster, int* local, int* s_out, int upto) {
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int r = 0; r < upto; ++r) t += *cluster.map_shared_rank(local, r);
+    *s_out = t;
+  }
+  __syncthreads();
+  const int v = *s_out;
+  __syncthreads();
+  return v;
+}
+
+// A slot in bucket `key`'s array, filled through counter(key), for each lane
+// whose `keep` is set: one atomic per bucket per warp.  Every lane calls it.
+template <class F>
+__device__ __forceinline__ int warp_append_to(bool keep, int key, F counter) {
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, keep ? key : -1);
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (keep && lane == leader) base = atomicAdd(counter(key), __popc(peers));
+  base = __shfl_sync(0xFFFFFFFFu, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+struct SelectCtl {
+  int n_in0, n_in, n_new;  // this CTA's in-range count (first round, insert walk), new states
+  int n_cache;             // its in-range entries that the first round kept
+  int n_inbox;             // the table entries routed to it
+  int n_w, n_l;            // the winners and lattice rows in this CTA's bucket
+  int wk;                  // the worst finite kept key of its winners
+  int wk_all;              // the same over the cluster, pushed by every CTA
+};
+
+// Pass 2, one cluster of C CTAs per channel (grid B * C), everything else:
+//  1. the channel's best key and list length from pass 1, and its
+//     thresholds; each CTA clears its share of the hash table;
+//  2. where the list is longer than min(K2, R) or than kHeavyList (a
+//     "heavy" channel), rounds of radix digits over it (each CTA
+//     histograms its share, every CTA sums the cluster's histograms through
+//     distributed shared memory) find n_in, the in-range count, and the
+//     cuts that n_in needs: D, the K2 smallest by (key, e), kept as a set,
+//     and L, the R smallest; the first round caches the in-range entries;
+//  3. one walk: the members of L go to their bucket's CTA; those of D
+//     within the beam whose next state is not S go into an open-addressing
+//     hash table keyed by next state, spread over the cluster's shared
+//     memory (CTA r holds slots [r per, (r + 1) per)), its value the
+//     smallest (key << 32 | e): the entries are the source's winners, one
+//     per state, each its state's smallest (cost, e).  Heavy, each goes
+//     through its slot owner's inbox;
+//  4. the winners in order of (key, state): a cut at K by rounds over the
+//     table where needed (heavy: unless every bucket holds its share of all
+//     of them, then the ranks past K are dropped); W goes to its bucket's
+//     CTA as (key << 32 | state);
+//  5. each CTA ranks its buckets and writes their rows at the bucket's
+//     offset plus the rank: the lattice rows (pm and cost, provisionally
+//     all kept) and the frontier and its records (e by a table lookup,
+//     then pm, tsil);
+//  6. wk, the worst finite kept cost, from every CTA's winners; each CTA
+//     then drops its lattice rows above wk + lattice_beam.
+// Buckets: a heavy channel splits W and L in C buckets each, by ranges of
+// the first radix digit chosen from its histogram so that each holds about
+// 1 / C of them: CTA r ranks bucket r of L (before step 4), then bucket r
+// of W.  A light one keeps W in rank 0 and L in rank 1, ranked side by side
+// after step 4.  kGlobal = false (buckets of at most kSortCap keys, at most
+// kTableCap slots; max-active up to 8,192): table and buckets in shared
+// memory.  kGlobal = true: per-channel rows of global scratch, with the
+// same code.
 template <bool kGlobal>
-__global__ void __launch_bounds__(kRankThreads, 1)
-select_v4_rank_kernel(const int32_t* __restrict__ cbits, const int32_t* __restrict__ nsm,
-                      const int32_t* __restrict__ pm, long long E, int32_t* __restrict__ chan_best,
-                      int32_t* __restrict__ chan_count, const uint64_t* __restrict__ list,
-                      const int32_t* __restrict__ tok_state, const float* __restrict__ tok_cost,
-                      const int32_t* __restrict__ tok_tsil, const uint8_t* __restrict__ valid,
-                      long long valid_stride, float beam, float lattice_beam, int K, int K2,
-                      int R, int S, int mbits, int32_t* __restrict__ new_state,
-                      float* __restrict__ new_cost, int32_t* __restrict__ new_tsil,
-                      int32_t* __restrict__ rec_pm, int32_t* __restrict__ rec_state,
-                      float* __restrict__ rec_fcost, int32_t* __restrict__ rec_lat_pm,
-                      float* __restrict__ rec_lat_cost, uint64_t* glob_x, uint32_t* glob_y,
-                      uint64_t* glob_w) {
+__global__ void __launch_bounds__(kSelThreads, 1)
+select_v4_cluster_kernel(const int32_t* __restrict__ cbits, const int32_t* __restrict__ nsm,
+                         const int32_t* __restrict__ pm, long long E,
+                         int32_t* __restrict__ chan_best, int32_t* __restrict__ chan_count,
+                         const uint32_t* __restrict__ list, const int32_t* __restrict__ tok_state,
+                         const float* __restrict__ tok_cost, const int32_t* __restrict__ tok_tsil,
+                         const uint8_t* __restrict__ valid, long long valid_stride, float beam,
+                         float lattice_beam, int K, int K2, int R, int S, int mbits, int slots,
+                         int cache_cap, int32_t* __restrict__ new_state, float* __restrict__ new_cost,
+                         int32_t* __restrict__ new_tsil, int32_t* __restrict__ rec_pm,
+                         int32_t* __restrict__ rec_state, float* __restrict__ rec_fcost,
+                         int32_t* __restrict__ rec_lat_pm, float* __restrict__ rec_lat_cost,
+                         uint64_t* glob_s, int32_t* glob_tk, uint64_t* glob_tv,
+                         int32_t* stats) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[32];
   __shared__ int s_int[4];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ int s_lo[2][kMaxCluster + 1];  // bucket bounds of L and W
+  __shared__ int s_pre[kMaxCluster + 1];    // items before W's bounds
+  __shared__ SelectCtl ctl;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / C, tid = threadIdx.x;
   const long long bK = static_cast<long long>(b) * K, bR = static_cast<long long>(b) * R;
   const long long bE = static_cast<long long>(b) * E;
-  const int K2e = static_cast<int>(min(static_cast<long long>(K2), E));
-  const int N = max(R, K2e);
-  const int cap = kGlobal ? sort_size(N) : kCap;
-  // x: sort keys; y: e of rank i; w: the winners; hist: the cuts' digits
-  uint64_t* x = kGlobal ? glob_x + static_cast<long long>(b) * cap
-                        : reinterpret_cast<uint64_t*>(smem);
-  uint32_t* y = kGlobal ? glob_y + static_cast<long long>(b) * N
-                        : reinterpret_cast<uint32_t*>(smem + kCap * 8);
-  uint64_t* w_keys = kGlobal ? glob_w + static_cast<long long>(b) * sort_size(K2e) : x;
-  int* hist = kGlobal ? reinterpret_cast<int*>(smem) : reinterpret_cast<int*>(y);
+  const int per = (slots + C - 1) / C;  // table slots of each CTA
+  const uint32_t T = static_cast<uint32_t>(per) * C;
+  const int cap = rank_size(max(K, R));  // keys of a bucket
+  int* hist = reinterpret_cast<int*>(smem);  // [round parity][target][kBins]
+  const SelectSmem lay = select_smem(per, cap, kGlobal);
+  auto* tv = reinterpret_cast<uint64_t*>(smem + lay.tv);
+  auto* tk = reinterpret_cast<int32_t*>(smem + lay.tk);
+  uint64_t* sbuf = kGlobal ? glob_s + (static_cast<long long>(b) * kMaxCluster + r) * cap
+                           : reinterpret_cast<uint64_t*>(smem + lay.buf);
+  auto* cache = reinterpret_cast<uint64_t*>(smem + lay.cache);
+  int32_t* tk_g = kGlobal ? glob_tk + static_cast<long long>(b) * T : nullptr;
+  uint64_t* tv_g = kGlobal ? glob_tv + static_cast<long long>(b) * T : nullptr;
+
   if (valid[static_cast<long long>(b) * valid_stride] == 0) {
     // a masked frame: the old frontier, identity records
-    for (int j = tid; j < max(K, R); j += kRankThreads) {
+    for (int j = r * kSelThreads + tid; j < max(K, R); j += C * kSelThreads) {
       const int32_t ident = kPmIdent | (j << mbits);
       if (j < K) {
         const int32_t fs = tok_state[bK + j];
@@ -640,220 +884,399 @@ select_v4_rank_kernel(const int32_t* __restrict__ cbits, const int32_t* __restri
     return;
   }
 
-  // 1. the best key and the thresholds; pass 1's counters reset for the
-  // next call once every thread has read them
+  // 1. the best key, the list length, the thresholds; empty histograms and
+  // table; pass 1's counters reset for the next call once every CTA has
+  // read them
   const int32_t best = chan_best[b];
   const int n_super = chan_count[b];
-  if (tid == 0) s_int[3] = 0;
-  __syncthreads();
-  if (tid == 0) {
+  const Thresholds th = thresholds(best, beam, lattice_beam);
+  for (int i = tid; i < 4 * kBins; i += kSelThreads) hist[i] = 0;
+  for (int i = tid; i < per; i += kSelThreads) {
+    if (kGlobal) {
+      tk_g[static_cast<long long>(r) * per + i] = -1;
+      tv_g[static_cast<long long>(r) * per + i] = kNone;
+    } else {
+      tk[i] = -1;
+      tv[i] = kNone;
+    }
+  }
+  if (tid < 2 * (kMaxCluster + 1)) s_lo[tid / (kMaxCluster + 1)][tid % (kMaxCluster + 1)] = 0;
+  if (tid < kMaxCluster + 1) s_pre[tid] = 0;
+  if (tid == 0) ctl = {0, 0, 0, 0, 0, 0, 0, kNoKey, kNoKey};
+  cluster.sync();
+  if (r == 0 && tid == 0) {
     chan_best[b] = kBig;
     chan_count[b] = 0;
   }
-  const Thresholds th = thresholds(best, beam, lattice_beam);
-  const uint64_t* chan_list = list + bE;
-  constexpr int kPer = 8;  // list entries per thread per chunk
-  constexpr int kChunk = kRankThreads * kPer;
-  // entry q of this thread in the chunk at `base`, or kNone
-  auto entry = [&](int base, int q) -> uint64_t {
-    const int g = base + q * kRankThreads + tid;
-    return g < n_super ? chan_list[g] : kNone;
+  const uint32_t base = ukey(best);
+  const int key_top = 32 - __clz((th.range - base) | 1u);
+  const int e_top = 32 - __clz(static_cast<uint32_t>(E - 1) | 1u);
+  const int s_top = 32 - __clz(static_cast<uint32_t>(S) | 1u);
+  const int K2e = static_cast<int>(min(static_cast<long long>(K2), E));
+  const bool heavy = n_super > kHeavyList;
+  // the first radix digit of a key: the buckets' ranges are of it
+  const int shift0 = key_top - min(kHistBits, key_top);
+  auto digit0 = [&](uint32_t u) { return static_cast<int>((u - base) >> shift0); };
+
+  // this CTA's share of the list: fn(in range, u, e) for each entry, called
+  // by every lane of every warp the same number of times; from the cache
+  // once the first round has filled it (and it held them all)
+  const uint32_t* chan_list = list + bE;
+  const int stride = C * kSelThreads;
+  bool cached = false;
+  auto walk_list = [&](auto fn) {
+    if (cached) {
+      for (int i0 = 0; i0 < ctl.n_cache; i0 += kSelThreads) {
+        const bool in = i0 + tid < ctl.n_cache;
+        const uint64_t v = in ? cache[i0 + tid] : kNone;
+        fn(in, static_cast<uint32_t>(v >> 32), static_cast<uint32_t>(v));
+      }
+      return;
+    }
+    for (int g0 = r * kSelThreads; g0 < n_super; g0 += stride * kWalkPer) {
+      uint32_t e[kWalkPer], u[kWalkPer];
+#pragma unroll
+      for (int q = 0; q < kWalkPer; ++q) {
+        const int g = g0 + q * stride + tid;
+        e[q] = g < n_super ? chan_list[g] : 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < kWalkPer; ++q) {
+        const int g = g0 + q * stride + tid;
+        u[q] = g < n_super ? ukey(__ldg(cbits + bE + e[q])) : 0xFFFFFFFFu;
+      }
+#pragma unroll
+      for (int q = 0; q < kWalkPer; ++q) fn(u[q] <= th.range, u[q], e[q]);
+    }
+  };
+  // this CTA's table slots: fn(occupied, u, state), as walk_list
+  auto walk_slots = [&](auto fn) {
+    for (int i0 = 0; i0 < per; i0 += kSelThreads) {
+      const int i = i0 + tid;
+      int32_t k = -1;
+      uint64_t v = kNone;
+      if (i < per) {
+        if (kGlobal) {
+          k = __ldcg(tk_g + static_cast<long long>(r) * per + i);
+          v = ld_cg(tv_g + static_cast<long long>(r) * per + i);
+        } else {
+          k = tk[i];
+          v = tv[i];
+        }
+      }
+      fn(k >= 0, static_cast<uint32_t>(v >> 32), static_cast<uint32_t>(k));
+    }
+  };
+  auto key_at = [&](uint32_t s) -> int32_t* {
+    return kGlobal ? tk_g + s : cluster.map_shared_rank(tk, s / per) + s % per;
+  };
+  auto val_at = [&](uint32_t s) -> uint64_t* {
+    return kGlobal ? tv_g + s : cluster.map_shared_rank(tv, s / per) + s % per;
+  };
+  auto slot_of = [&](int32_t state) {  // multiplicative hash, scaled onto [0, T)
+    return __umulhi(static_cast<uint32_t>(state) * 0x9E3779B1u, T);
+  };
+  auto buf_of = [&](int q) -> uint64_t* {
+    return kGlobal ? glob_s + (static_cast<long long>(b) * kMaxCluster + q) * cap
+                   : cluster.map_shared_rank(sbuf, q);
+  };
+  // histograms of this round: parity round & 1, target t
+  int round = 0;
+  auto hist_of = [&](int t) { return hist + ((round & 1) * 2 + t) * kBins; };
+  auto next_round = [&]() {  // clear the other parity, last read a round ago
+    int* h = hist + ((round + 1) & 1) * 2 * kBins;
+    for (int i = tid; i < 2 * kBins; i += kSelThreads) h[i] = 0;
+    __syncthreads();
+    ++round;
   };
 
-  // 2. the in-range candidates (the first cap of them kept; their order
-  // does not matter, the sorts below give it)
-  for (int base = 0; base < n_super; base += kChunk) {
-    uint64_t v[kPer];
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) v[q] = entry(base, q);
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const bool in = static_cast<uint32_t>(v[q] >> 32) <= th.range;
-      const int p = warp_append(in, &s_int[3]);
-      if (in && p < cap) x[p] = v[q];
+  // 2. the cuts D (K2e smallest) and L (R smallest), where the list may
+  // hold more in-range candidates than either, or is long enough for
+  // buckets; the first round counts n_in and gives L's bucket bounds
+  Cut cd = cut_all(), cl = cut_all();
+  if (heavy || n_super > min(K2e, R)) {
+    cd = cut_at(K2e, key_top);
+    cl = cut_at(R, key_top);
+    bool first = true;
+    while (cd.field != 2 || cl.field != 2) {
+      const bool share = cd.field == cl.field && cd.top == cl.top && cd.prefix == cl.prefix &&
+                         cd.key == cl.key;
+      int* hd = hist_of(0);
+      int* hl = share ? hd : hist_of(1);
+      int n = 0;
+      walk_list([&](bool in, uint32_t u, uint32_t e) {
+        n += in;
+        hist_add(hd, in && cd.field != 2 ? cut_bin(cd, u, e, base) : -1);
+        if (!share) hist_add(hl, in && cl.field != 2 ? cut_bin(cl, u, e, base) : -1);
+        if (first) {
+          const int p = warp_append(in, &ctl.n_cache);
+          if (in && p < cache_cap) cache[p] = (static_cast<uint64_t>(u) << 32) | e;
+        }
+      });
+      if (first) block_add(n, &ctl.n_in0);
+      cluster.sync();
+      cached = ctl.n_cache <= cache_cap;
+      int h2[2] = {0, 0};
+      int acc = cd.field != 2 ? hist_sum(cluster, hd, cut_bins(cd), h2, s_warp) : 0;
+      if (first) {  // both cuts share the first round
+        const int n_in = cluster_reduce(cluster, &ctl.n_in0, &s_int[3], C);
+        if (heavy) bucket_bounds(s_lo[0], s_pre, acc, h2, min(n_in, R), C);
+        if (n_in <= K2e) cd = cut_all();
+        if (n_in <= R) cl = cut_all();
+        first = false;
+      }
+      if (cd.field != 2) cut_advance(cd, acc, h2, base, e_top, s_int);
+      if (cl.field != 2) {
+        if (!share) acc = hist_sum(cluster, hl, cut_bins(cl), h2, s_warp);
+        cut_advance(cl, acc, h2, base, e_top, s_int);
+      }
+      next_round();
     }
   }
-  __syncthreads();
-  const int n_in = s_int[3];
-  int n_a = n_in;
-  if (n_in > cap) {
-    // keep the N first by (key, e): radix selects, over the list, of the
-    // key at rank N - 1 and, where that key's run straddles the cut, of
-    // the e at the run's rank; digits of up to 11 bits from the top set
-    // bit of the field's range (keys as offsets from the best key)
-    auto radix = [&](auto field, auto keep, int top, int& k0, int& n_eq) -> uint32_t {
-      uint32_t prefix = 0;
-      for (; top > 0; top -= kHistBits) {
-        const int nbits = min(kHistBits, top), shift = top - nbits, bins = 1 << nbits;
-        for (int i = tid; i < bins; i += kRankThreads) hist[i] = 0;
-        __syncthreads();
-        for (int base = 0; base < n_super; base += kChunk) {
-#pragma unroll
-          for (int q = 0; q < kPer; ++q) {
-            const uint64_t v = entry(base, q);
-            const uint32_t f = field(v);
-            const bool in = keep(v) && (static_cast<uint64_t>(f) >> top) ==
-                                           (static_cast<uint64_t>(prefix) >> top);
-            const int bin = in ? static_cast<int>((f >> shift) & (bins - 1)) : -1;
-            // one atomic per bin per warp: in-range keys share their top digits
-            const unsigned peers = __match_any_sync(0xFFFFFFFFu, bin);
-            if (in && (tid & 31) == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
-          }
-        }
-        __syncthreads();
-        const int per = (bins + kRankThreads - 1) / kRankThreads;
-        const int d0 = min(tid * per, bins), d1 = min(d0 + per, bins);
-        int c = 0;
-        for (int d = d0; d < d1; ++d) c += hist[d];
-        int tot;
-        int acc = block_excl_scan<kRankThreads>(c, s_warp, &tot);
-        if (acc <= k0 && k0 < acc + c) {
-          for (int d = d0; d < d1; ++d) {
-            const int h = hist[d];
-            if (k0 < acc + h) {
-              s_int[0] = d;
-              s_int[1] = k0 - acc;
-              s_int[2] = h;
-              break;
-            }
-            acc += h;
-          }
-        }
-        __syncthreads();
-        prefix |= static_cast<uint32_t>(s_int[0]) << shift;
-        k0 = s_int[1];
-        n_eq = s_int[2];
-        __syncthreads();
+
+  // 3. L into its buckets; D's in-beam candidates into the table.  Heavy,
+  // in shared memory: each goes to the inbox of the CTA that holds its
+  // state's home slot (the histograms' memory, idle until step 4), which
+  // then inserts its inbox with its own atomics; an inbox's overflow, and
+  // the other cases, insert from the walk
+  auto insert = [&](int32_t ns, uint64_t v) -> int {  // 1 if ns is new
+    uint32_t s = slot_of(ns);
+    for (;;) {
+      const bool mine = !kGlobal && s / per == static_cast<uint32_t>(r);
+      const int32_t old = atomicCAS(mine ? tk + (s - r * per) : key_at(s), -1, ns);
+      if (old == -1 || old == ns) {
+        if (mine)  // a 64-bit atomic minimum is sound in the CTA's own memory
+          atomicMin(reinterpret_cast<unsigned long long*>(tv + (s - r * per)), v);
+        else
+          atomic_min64(val_at(s), v);
+        return old == -1;
       }
-      return prefix;
+      s = s + 1 == T ? 0 : s + 1;
+    }
+  };
+  const bool routed = heavy && !kGlobal;
+  auto* inbox = reinterpret_cast<uint64_t*>(hist);
+  if (routed) cluster.sync();  // every CTA is done with the histograms
+  {
+    int n = 0, fresh = 0;
+    walk_list([&](bool in, uint32_t u, uint32_t e) {
+      n += in;
+      const bool to_l = in && cut_keeps(cl, u, e);
+      const int q = heavy ? bucket_of(s_lo[0], C, to_l ? digit0(u) : 0) : 1;
+      const int p = warp_append_to(to_l, q, [&](int k) {
+        return cluster.map_shared_rank(&ctl.n_l, k);
+      });
+      const uint64_t v = (static_cast<uint64_t>(u) << 32) | e;
+      if (to_l) buf_of(q)[p] = v;
+      const bool to_d =
+          in && cut_keeps(cd, u, e) && static_cast<int32_t>(u ^ 0x80000000u) <= th.keep;
+      const int32_t ns = to_d ? __ldg(nsm + bE + e) : S;
+      if (routed) {
+        const int own = ns != S ? static_cast<int>(slot_of(ns) / per) : 0;
+        const int at = warp_append_to(ns != S, own, [&](int k) {
+          return cluster.map_shared_rank(&ctl.n_inbox, k);
+        });
+        if (ns != S) {
+          if (at < kInbox) cluster.map_shared_rank(inbox, own)[at] = v;
+          else fresh += insert(ns, v);
+        }
+      } else if (ns != S) {
+        fresh += insert(ns, v);
+      }
+    });
+    block_add(n, &ctl.n_in);
+    block_add(fresh, &ctl.n_new);
+  }
+  cluster.sync();
+  if (routed) {
+    int fresh = 0;
+    const int n = min(ctl.n_inbox, kInbox);
+    for (int i0 = 0; i0 < n; i0 += kSelThreads) {
+      if (i0 + tid < n) {
+        const uint64_t v = inbox[i0 + tid];
+        fresh += insert(__ldg(nsm + bE + static_cast<uint32_t>(v)), v);
+      }
+    }
+    block_add(fresh, &ctl.n_new);  // every lane: the loop above has no barrier
+    __syncthreads();                // the inbox read, its memory is histograms again
+    for (int i = tid; i < 4 * kBins; i += kSelThreads) hist[i] = 0;
+    cluster.sync();
+  }
+  const int n_win = cluster_reduce(cluster, &ctl.n_new, &s_int[3], C);
+  const int n_lat = cluster_reduce(cluster, &ctl.n_l, &s_int[3], C);
+  const int lat_off = cluster_reduce(cluster, &ctl.n_l, &s_int[3], r);
+  if (stats) {
+    const int n_in = cluster_reduce(cluster, &ctl.n_in, &s_int[3], C);
+    if (r == 0 && tid == 0) {
+      stats[3 * b] = n_super;
+      stats[3 * b + 1] = n_in;
+      stats[3 * b + 2] = n_win;
+    }
+  }
+
+  // fn(rank, key) for the n keys of this CTA's bucket a: where they fit in
+  // the cache's memory (idle by now) and no first digit holds more than
+  // kGroup of them, a counting sort by first digit and a count within each
+  // digit's group (under load a few keys); else rank_keys.  The digits are
+  // counted in the histograms' memory (idle too), left zero.
+  auto rank_bucket = [&](uint64_t* a, int n, auto fn) {
+    int* cnt = hist;              // keys of each first digit
+    int* start = hist + kBins;    // where its group starts
+    int* fill = hist + 2 * kBins;
+    auto digit = [&](uint64_t x) { return digit0(static_cast<uint32_t>(x >> 32)); };
+    auto clear = [&]() {
+      for (int i = tid; i < 4 * kBins; i += kSelThreads) hist[i] = 0;
+      __syncthreads();
     };
-    const uint32_t base_u = ukey(best);
-    int k0 = N - 1, n_eq = 0;
-    const uint32_t t_key =
-        base_u + radix([&](uint64_t v) { return static_cast<uint32_t>(v >> 32) - base_u; },
-                       [&](uint64_t v) { return static_cast<uint32_t>(v >> 32) <= th.range; },
-                       32 - __clz((th.range - base_u) | 1u), k0, n_eq);
-    uint32_t e_cut = 0xFFFFFFFFu;  // all n_eq entries at the cut key, unless
-    if (n_eq > k0 + 1)              // only the k0 + 1 of lowest e
-      e_cut = radix([&](uint64_t v) { return static_cast<uint32_t>(v); },
-                    [&](uint64_t v) { return static_cast<uint32_t>(v >> 32) == t_key; },
-                    32 - __clz(static_cast<uint32_t>(E - 1) | 1u), k0, n_eq);
-    if (tid == 0) s_int[3] = 0;
-    __syncthreads();
-    for (int base = 0; base < n_super; base += kChunk) {
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const uint64_t v = entry(base, q);
-        const uint32_t u = static_cast<uint32_t>(v >> 32);
-        const bool take = u < t_key || (u == t_key && static_cast<uint32_t>(v) <= e_cut);
-        const int p = warp_append(take, &s_int[3]);
-        if (take) x[p] = v;
+    if (rank_size(n) <= cache_cap) {
+      clear();
+      for (int i = tid; i < n; i += kSelThreads) atomicAdd(&cnt[digit(a[i])], 1);
+      __syncthreads();
+      const int d0 = 2 * tid, c0 = cnt[d0], c1 = cnt[d0 + 1];
+      int tot;
+      const int acc = block_excl_scan<kSelThreads>(c0 + c1, s_warp, &tot);
+      start[d0] = acc;
+      start[d0 + 1] = acc + c0;
+      if (-block_min<kSelThreads>(-max(c0, c1), s_warp) <= kGroup) {
+        for (int i = tid; i < n; i += kSelThreads) {
+          const uint64_t x = a[i];
+          const int d = digit(x);
+          cache[start[d] + atomicAdd(&fill[d], 1)] = x;
+        }
+        __syncthreads();
+        for (int i = tid; i < n; i += kSelThreads) {
+          const uint64_t x = cache[i];
+          const int d = digit(x), g0 = start[d], g1 = g0 + cnt[d];
+          int below = 0;
+          for (int j = g0; j < g1; ++j) below += cache[j] < x;
+          fn(g0 + below, x);
+        }
+        __syncthreads();
+        clear();
+        return;
       }
+      // large groups: rank a copy in the cache's memory (a may be global)
+      for (int i = tid; i < n; i += kSelThreads) cache[i] = a[i];
+      clear();
+      rank_keys(cache, n, fn);
+      return;
     }
-    n_a = N;
-  }
-
-  // 3. rank i = pool position i
-  __syncthreads();
-  pad_and_sort(x, n_a);
-  const int n_r = min(n_a, N);
-  const int n_d = min(n_r, K2e);
-
-  // 4. y[i] = e of rank i; the dedup set's in-beam candidates -> (state, rank)
-  int n_w = 0;
-  for (int r0 = 0; r0 < n_r; r0 += kRankThreads) {
-    const int i = r0 + tid;
-    uint64_t w = kNone;
-    if (i < n_r) {
-      const uint64_t c = x[sw(i)];
-      const uint32_t e = static_cast<uint32_t>(c);
-      y[i] = e;
-      if (i < n_d && key_of(c) <= th.keep) {
-        const int32_t n = nsm[bE + e];
-        if (n != S) w = (static_cast<uint64_t>(static_cast<uint32_t>(n)) << 32) | i;
-      }
-    }
-    int tot;
-    const int p = n_w + block_excl_scan<kRankThreads>(w != kNone, s_warp, &tot);
-    if (w != kNone) x[p] = w;
-    n_w += tot;
-  }
-  __syncthreads();
-  pad_and_sort(x, n_w);
-
-  // 5. the first of each state wins; winners -> (key, state position p)
-  // (shared: the winners overwrite x, so where states start is read
-  // first, and each carries its rank; global: x stays)
-  unsigned first = 0;  // bit q: entry tid + q * kRankThreads starts a state
-  auto starts = [&](int p) {
-    return p < n_w && (p == 0 || (x[sw(p)] >> 32) != (x[sw(p - 1)] >> 32));
+    clear();
+    rank_keys(a, n, fn);
   };
-  if (!kGlobal) {
-    for (int q = 0; q * kRankThreads < n_w; ++q)
-      if (starts(q * kRankThreads + tid)) first |= 1u << q;
-    __syncthreads();
-  }
-  int n_win = 0;
-  for (int q = 0; q * kRankThreads < n_w; ++q) {
-    const int p = q * kRankThreads + tid;
-    uint64_t w = kNone;
-    if (kGlobal ? starts(p) : (first >> q & 1u)) {
-      const uint32_t i = static_cast<uint32_t>(x[sw(p)]);
-      w = (static_cast<uint64_t>(ukey(cbits[bE + y[i]])) << 32) |
-          (kGlobal ? static_cast<uint64_t>(p) : (static_cast<uint64_t>(p) << kRankBits) | i);
-    }
-    int tot;
-    const int at = n_win + block_excl_scan<kRankThreads>(w != kNone, s_warp, &tot);
-    if (w != kNone) w_keys[at] = w;
-    n_win += tot;
-  }
-  __syncthreads();
-  pad_and_sort(w_keys, n_win);
 
-  // 6. the frontier, its records, wk; then the lattice rows
-  if (tid == 0) s_int[2] = kNoKey;
-  __syncthreads();
-  for (int j = tid; j < K; j += kRankThreads) {
-    int32_t fs = S, ft = 0, rp = -1;
-    float fc = INFINITY;
-    if (j < n_win) {
-      const uint64_t c = w_keys[sw(j)];
-      const uint32_t e = y[kGlobal ? static_cast<uint32_t>(x[sw(static_cast<uint32_t>(c))])
-                                   : c & ((1u << kRankBits) - 1)];
-    const int32_t key = key_of(c);
+  // 5a. this CTA's bucket of L in order, its rows written as if all kept
+  auto lattice_rows = [&]() {
+    rank_bucket(sbuf, ctl.n_l, [&](int i, uint64_t c) {
+      rec_lat_pm[bR + lat_off + i] = pm[bE + static_cast<uint32_t>(c)] & kPmMask;
+      rec_lat_cost[bR + lat_off + i] = key_cost(key_of(c));
+    });
+  };
+  if (heavy) lattice_rows();  // its buffer then takes the winners
+
+  // 4. the K first winners by (key, state) into their buckets; heavy, where
+  // every bucket can hold its share of all n_win winners, all of them, and
+  // the ranks past K are dropped instead of cut
+  Cut cw = cut_all();
+  bool all_w = false;
+  if (heavy || n_win > K) {
+    cw = cut_at(K, key_top);
+    bool first = true;
+    while (cw.field != 2) {
+      int* h = hist_of(0);
+      walk_slots([&](bool occ, uint32_t u, uint32_t st) {
+        hist_add(h, occ ? cut_bin(cw, u, st, base) : -1);
+      });
+      cluster.sync();
+      int h2[2];
+      const int acc = hist_sum(cluster, h, cut_bins(cw), h2, s_warp);
+      if (first && heavy) {
+        if (tid <= kMaxCluster) s_pre[tid] = 0;  // L's bounds wrote it
+        __syncthreads();
+        bucket_bounds(s_lo[1], s_pre, acc, h2, n_win, C);
+        __syncthreads();
+        int most = n_win - s_pre[C - 1];
+        for (int k = 1; k < C; ++k) most = max(most, s_pre[k] - s_pre[k - 1]);
+        all_w = most <= cap;
+        __syncthreads();
+        if (!all_w) {  // the cut first; buckets of its K
+          if (tid <= kMaxCluster) s_lo[1][tid] = s_pre[tid] = 0;
+          __syncthreads();
+          bucket_bounds(s_lo[1], s_pre, acc, h2, min(n_win, K), C);
+        }
+      }
+      if (first) {
+        if (n_win <= K || all_w) cw = cut_all();
+        first = false;
+      }
+      if (cw.field != 2) cut_advance(cw, acc, h2, base, s_top, s_int);
+      next_round();
+    }
+  }
+  walk_slots([&](bool occ, uint32_t u, uint32_t st) {
+    const bool take = occ && cut_keeps(cw, u, st);
+    const int q = heavy ? bucket_of(s_lo[1], C, take ? digit0(u) : 0) : 0;
+    const int p = warp_append_to(take, q, [&](int k) {
+      return cluster.map_shared_rank(&ctl.n_w, k);
+    });
+    if (take) buf_of(q)[p] = (static_cast<uint64_t>(u) << 32) | st;
+  });
+  cluster.sync();
+
+  // 5b. this CTA's bucket of W in order: the frontier and its records
+  if (!heavy && r == 1) lattice_rows();
+  const int n_kept = min(cluster_reduce(cluster, &ctl.n_w, &s_int[3], C), K);
+  const int w_off = cluster_reduce(cluster, &ctl.n_w, &s_int[3], r);
+  if (heavy || r == 0) {
+    rank_bucket(sbuf, ctl.n_w, [&](int i, uint64_t c) {
+      if (w_off + i >= K) return;  // past the frontier (all_w)
+      const int32_t st = static_cast<int32_t>(static_cast<uint32_t>(c));
+      const int32_t key = key_of(c);
+      uint32_t s = slot_of(st);
+      while ((kGlobal ? __ldcg(key_at(s)) : *key_at(s)) != st) s = s + 1 == T ? 0 : s + 1;
+      const uint32_t e = static_cast<uint32_t>(kGlobal ? ld_cg(val_at(s)) : *val_at(s));
       const int32_t p = pm[bE + e];
       const int prev = static_cast<int>(static_cast<uint32_t>(p & kPmMask) >> mbits);
       const int32_t pts = prev < K ? __ldg(tok_tsil + bK + prev) : 0;
-      fs = nsm[bE + e];
-      fc = key_cost(key);
-      ft = (p & kPmSil) ? (((pts & kTsilMask) + 1) | (pts & kSpeech)) : kSpeech;
-      rp = p & kPmMask;
-      if (key > -kPosInfKey && key < kPosInfKey) atomicMax(&s_int[2], key);
-    }
-    new_state[bK + j] = fs;
-    new_cost[bK + j] = fc;
-    new_tsil[bK + j] = ft;
-    rec_pm[bK + j] = rp;
-    rec_state[bK + j] = fs;
-    rec_fcost[bK + j] = fc;
+      const int32_t ft = (p & kPmSil) ? (((pts & kTsilMask) + 1) | (pts & kSpeech)) : kSpeech;
+      const float fc = key_cost(key);
+      const long long j = bK + w_off + i;
+      new_state[j] = st;
+      new_cost[j] = fc;
+      new_tsil[j] = ft;
+      rec_pm[j] = p & kPmMask;
+      rec_state[j] = st;
+      rec_fcost[j] = fc;
+      if (key > -kPosInfKey && key < kPosInfKey) atomicMax(&ctl.wk, key);
+    });
+  }
+  // the rows past the kept winners and past L, over the whole cluster
+  for (int j = n_kept + r * kSelThreads + tid; j < K; j += C * kSelThreads) {
+    new_state[bK + j] = S;
+    new_cost[bK + j] = INFINITY;
+    new_tsil[bK + j] = 0;
+    rec_pm[bK + j] = -1;
+    rec_state[bK + j] = S;
+    rec_fcost[bK + j] = INFINITY;
+  }
+  for (int j = n_lat + r * kSelThreads + tid; j < R; j += C * kSelThreads) {
+    rec_lat_pm[bR + j] = -1;
+    rec_lat_cost[bR + j] = INFINITY;
   }
   __syncthreads();
-  const float wk = s_int[2] == kNoKey ? -INFINITY : key_cost(s_int[2]);
+  if (tid < C && ctl.wk != kNoKey) atomicMax(cluster.map_shared_rank(&ctl.wk_all, tid), ctl.wk);
+  cluster.sync();
+
+  // 6. wk over the cluster; this CTA's lattice rows above wk + lattice_beam
+  // dropped (no CTA touches another's shared memory after the barrier)
+  const int wk_key = ctl.wk_all;
+  const float wk = wk_key == kNoKey ? -INFINITY : key_cost(wk_key);
   const float lat_lim = __fadd_rn(wk, lattice_beam);
-  for (int j = tid; j < R; j += kRankThreads) {
-    int32_t lp = -1;
-    float lc = INFINITY;
-    if (j < n_r) {
-      const uint32_t e = y[j];
-      const int32_t key = cbits[bE + e];
-      const float c = key_cost(key);
-      if (c <= lat_lim) {  // every ranked key is below BIG
-        lp = pm[bE + e] & kPmMask;
-        lc = c;
-      }
+  for (int i = tid; i < ctl.n_l; i += kSelThreads) {
+    if (!(rec_lat_cost[bR + lat_off + i] <= lat_lim)) {  // every member of L is below BIG
+      rec_lat_pm[bR + lat_off + i] = -1;
+      rec_lat_cost[bR + lat_off + i] = INFINITY;
     }
-    rec_lat_pm[bR + j] = lp;
-    rec_lat_cost[bR + j] = lc;
   }
 }
 
@@ -909,6 +1332,72 @@ int num_sms() {
   return n;
 }
 
+// Let kernel fn take as much dynamic shared memory as the current device
+// allows a block beside its static part, once per device; *limit gets that
+// amount (cached in `limits`, the kernel's own, as the amount + 1).
+template <class F>
+cudaError_t allow_max_smem(F* fn, std::atomic<int>* limits, int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && (*limit = limits[dev].load(std::memory_order_acquire) - 1) >= 0)
+    return cudaSuccess;
+  int optin = 0;
+  cudaFuncAttributes attr{};
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  *limit = optin - static_cast<int>(attr.sharedSizeBytes);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  if (err == cudaSuccess && known) limits[dev].store(*limit + 1, std::memory_order_release);
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int C, size_t smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kSelThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(C);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// CTAs per channel: the most, up to kMaxCluster, with which the device holds
+// all B clusters at once, and at least 2.  H100 holds 66 clusters of 2 of
+// these CTAs (one an SM), 39 of 3, 30 of 4 and 15 of 8, so B = 32 takes 3
+// and B = 1 takes 8.  cudaOccupancyMaxActiveClusters is asked once per
+// device and size, at the most shared memory a CTA of that size takes
+// (`fit` caches the answer + 1).
+template <class F>
+int cluster_size(F* fn, int B, bool global, std::atomic<int> (*fit)[kMaxCluster + 1]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 2;
+  for (int C = kMaxCluster; C > 2; --C) {
+    int n = fit[dev][C].load(std::memory_order_acquire) - 1;
+    if (n < 0) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(
+          C, C, select_smem((kTableCap + C - 1) / C, kSortCap, global).cache + 8 * kSelThreads,
+          nullptr, &attr);
+      if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+        cudaGetLastError();
+        n = 0;
+      }
+      fit[dev][C].store(n + 1, std::memory_order_release);
+    }
+    if (B <= n) return C;
+  }
+  return 2;
+}
+
 }  // namespace
 
 // planes: 2 for packed16 rows, 3 for exact3 rows (pdf_bits the width of
@@ -961,49 +1450,75 @@ extern "C" int vt_expand_v4(const void* em_pack, const void* tok_state, const vo
   return static_cast<int>(err);
 }
 
+// list: [B * E] uint32 (pass 1's candidate numbers); chan_best / chan_count
+// [B], BIG and 0 on the first call (pass 2 leaves them so).  Where a sort
+// takes more than kSortCap keys (K or R) or the table more than kTableCap
+// slots (slots = max(kMinSlots, ceil(5 min(K2, E) / 4))), pass 2 works in
+// global scratch: glob_s [B * kMaxCluster * rank_size(max(K, R))] (uint64,
+// the buckets), glob_tk [B * (slots + kMaxCluster)]
+// (int32) and glob_tv [the same] (uint64, the table); else they may be
+// null.  stats: null, or [B * 3] int32 that gets each valid channel's list
+// length, in-range count and winner count.
 extern "C" int vt_select_v4(
     const void* cbits, const void* nsm, const void* pm, long long E, const void* tok_state,
     const void* tok_cost, const void* tok_tsil, const void* valid, long long valid_stride,
     float beam, float lattice_beam, int B, int K, int K2, int R, int S, int mbits,
     void* chan_best, void* chan_count, void* list, void* new_state, void* new_cost,
     void* new_tsil, void* rec_pm, void* rec_state, void* rec_fcost, void* rec_lat_pm,
-    void* rec_lat_cost, void* glob_x, void* glob_y, void* glob_w, void* stream) {
+    void* rec_lat_cost, void* glob_s, void* glob_tk, void* glob_tv, void* stats,
+    void* stream) {
   const long long n_tiles = (E + kTile - 1) / kTile;
-  if (B <= 0 || n_tiles <= 0 || n_tiles > 0x7FFFFFFF || K2 <= 0 || R <= 0)
+  if (B <= 0 || K <= 0 || n_tiles <= 0 || n_tiles > 0x7FFFFFFF || K2 <= 0 || R <= 0 ||
+      static_cast<long long>(B) * kMaxCluster > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* cb = static_cast<const int32_t*>(cbits);
   const auto* v = static_cast<const uint8_t*>(valid);
   auto* best = static_cast<int32_t*>(chan_best);
   auto* count = static_cast<int32_t*>(chan_count);
-  auto* l = static_cast<uint64_t*>(list);
+  auto* l = static_cast<uint32_t*>(list);
   select_v4_scan_kernel<<<dim3(static_cast<unsigned>(n_tiles), B), kScanThreads, 0, s>>>(
       cb, E, v, valid_stride, beam, lattice_beam, best, count, l);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int K2e = K2 < E ? K2 : static_cast<int>(E);
-  const bool global = (R > K2e ? R : K2e) > kCap;
-  if (global && (glob_x == nullptr || glob_y == nullptr || glob_w == nullptr))
+  const long long K2e = K2 < E ? K2 : E;
+  const int slots = static_cast<int>(kMinSlots > (5 * K2e + 3) / 4 ? kMinSlots
+                                                                    : (5 * K2e + 3) / 4);
+  const int cap = rank_size(K > R ? K : R);
+  const bool global = cap > kSortCap || slots > kTableCap;
+  if (global && (glob_s == nullptr || glob_tk == nullptr || glob_tv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-#define VT_RANK(GLOBAL, SMEM)                                                                  \
-  select_v4_rank_kernel<GLOBAL><<<B, kRankThreads, SMEM, s>>>(                                 \
-      cb, static_cast<const int32_t*>(nsm), static_cast<const int32_t*>(pm), E, best, count, l, \
-      static_cast<const int32_t*>(tok_state), static_cast<const float*>(tok_cost),             \
-      static_cast<const int32_t*>(tok_tsil), v, valid_stride, beam, lattice_beam, K, K2, R, S, \
-      mbits, static_cast<int32_t*>(new_state), static_cast<float*>(new_cost),                  \
-      static_cast<int32_t*>(new_tsil), static_cast<int32_t*>(rec_pm),                          \
-      static_cast<int32_t*>(rec_state), static_cast<float*>(rec_fcost),                        \
-      static_cast<int32_t*>(rec_lat_pm), static_cast<float*>(rec_lat_cost),                    \
-      static_cast<uint64_t*>(glob_x), static_cast<uint32_t*>(glob_y),                          \
-      static_cast<uint64_t*>(glob_w))
-  if (global) {
-    VT_RANK(true, kHistSmem);
-  } else {
-    static std::atomic<bool> smem_allowed[kMaxDevices];
-    err = allow_smem(select_v4_rank_kernel<false>, static_cast<int>(kRankSmem), smem_allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    VT_RANK(false, kRankSmem);
-  }
-#undef VT_RANK
+  auto launch = [&](auto* kern, std::atomic<int>* smem_limit,
+                    std::atomic<int> (*fit)[kMaxCluster + 1]) {
+    int limit = 0;
+    cudaError_t e = allow_max_smem(kern, smem_limit, &limit);
+    if (e != cudaSuccess) return e;
+    // no more CTAs than the pool has tiles of pass 1 (a small pool pays
+    // for every CTA at each cluster barrier), and at least 2
+    const int C = static_cast<int>(std::max(2LL, std::min(static_cast<long long>(
+                                               cluster_size(kern, B, global, fit)), n_tiles)));
+    const size_t used = select_smem((slots + C - 1) / C, cap, global).cache;
+    if (used + 8 * kSelThreads > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
+    const int cache_cap = static_cast<int>((limit - used) / 8);
+    const size_t smem = used + static_cast<size_t>(cache_cap) * 8;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(B * C, C, smem, s, &attr);
+    return cudaLaunchKernelEx(
+        &cfg, kern, cb, static_cast<const int32_t*>(nsm), static_cast<const int32_t*>(pm), E,
+        best, count, static_cast<const uint32_t*>(l), static_cast<const int32_t*>(tok_state),
+        static_cast<const float*>(tok_cost), static_cast<const int32_t*>(tok_tsil), v,
+        valid_stride, beam, lattice_beam, K, K2, R, S, mbits, slots, cache_cap,
+        static_cast<int32_t*>(new_state), static_cast<float*>(new_cost),
+        static_cast<int32_t*>(new_tsil), static_cast<int32_t*>(rec_pm),
+        static_cast<int32_t*>(rec_state), static_cast<float*>(rec_fcost),
+        static_cast<int32_t*>(rec_lat_pm), static_cast<float*>(rec_lat_cost),
+        static_cast<uint64_t*>(glob_s), static_cast<int32_t*>(glob_tk),
+        static_cast<uint64_t*>(glob_tv), static_cast<int32_t*>(stats));
+  };
+  static std::atomic<int> smem_limit[2][kMaxDevices];
+  static std::atomic<int> fit[2][kMaxDevices][kMaxCluster + 1];
+  err = global ? launch(select_v4_cluster_kernel<true>, smem_limit[1], fit[1])
+               : launch(select_v4_cluster_kernel<false>, smem_limit[0], fit[0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

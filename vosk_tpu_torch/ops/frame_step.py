@@ -8,9 +8,11 @@ Per frame the decoder (ops/viterbi.py) runs
     `vosk_tpu/ops/viterbi.py` `_unpack_rows_v4` + `_expand_v4`, :833-894);
   * `select_v4`: from that unsorted pool, the dedup by next state, the
     beam prune, the trailing-silence lookup tsil[b, prev], the new
-    frontier and the five record planes, in two launches and no sort
-    (source: the pool sort of `_frame_step_v4` :905 and `_select_v4`,
-    :1057-1155).
+    frontier and the five record planes, in two launches (a scan of the
+    keys, then a thread-block cluster per channel: radix cuts, a hash
+    table for the dedup, sorts of at most K and R keys) and no sort of the
+    pool (source: the pool sort of `_frame_step_v4` :905 and
+    `_select_v4`, :1057-1155).
 Together they replace the JAX package's Pallas kernel `_pallas_gather`
 (vosk_tpu/ops/gather.py:33) at its two v4 call sites (:879 and :1105), and
 the sorts and element-wise ops that made its indices and consumed its
@@ -154,7 +156,7 @@ _SIGNATURES = {
     "vt_expand_v4": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                      _P],
     "vt_select_v4": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -297,14 +299,31 @@ def select_v4_plain(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbit
     return new_frontier, out
 
 
-# csrc/frame_step.cu: pass 2 ranks up to SELECT_SHARED_CAP candidates per
-# channel in shared memory, more in global scratch
-SELECT_SHARED_CAP = 16384
+# csrc/frame_step.cu: pass 2's buckets hold up to SELECT_SORT_CAP keys (the
+# K winners, the R lattice rows) and its hash table up to SELECT_TABLE_CAP
+# slots in the cluster's shared memory; past either, global scratch, with up
+# to SELECT_MAX_CLUSTER CTAs a channel
+SELECT_SORT_CAP = 8192
+SELECT_TABLE_CAP = 20480
+SELECT_MAX_CLUSTER = 8
+_SELECT_MIN_SLOTS = 1024
 
 
-def _sort_size(n: int) -> int:
-    """The kernel's bitonic sort size for n keys: a power of two, >= 256."""
-    return max(256, 1 << (n - 1).bit_length())
+def _rank_size(n: int) -> int:
+    """The kernel's buffer for ranking n keys: whole tiles of 256."""
+    return -(-n // 256) * 256
+
+
+def select_table_slots(E: int, K2: int) -> int:
+    """Hash slots of a channel in select_v4's pass 2: 5/4 of the K2
+    cheapest candidates (at most 4/5 full), and at least _SELECT_MIN_SLOTS."""
+    return max(_SELECT_MIN_SLOTS, (5 * min(K2, E) + 3) // 4)
+
+
+def select_in_global(E: int, K: int, K2: int, R: int) -> bool:
+    """Whether select_v4's pass 2 sorts and hashes in global scratch."""
+    return (_rank_size(max(K, R)) > SELECT_SORT_CAP
+            or select_table_slots(E, K2) > SELECT_TABLE_CAP)
 
 
 class SelectScratch:
@@ -312,43 +331,62 @@ class SelectScratch:
     and frees it with itself).  Per (device, stream), since calls on one
     stream run in order: pass 1's per-channel best key and list count
     (pass 2 resets them to BIG and 0 after reading them, so they are set
-    only when allocated), its candidate lists [B * E], and, where more than
-    SELECT_SHARED_CAP candidates are ranked, pass 2's sort keys, ranks and
-    winners.  Each buffer grows to the largest call seen."""
+    only when allocated), its candidate lists [B * E] of int32 candidate
+    numbers, and, where pass 2 works in global scratch
+    (`select_in_global`), its buckets (a row of sort keys per CTA) and its
+    hash table (keys and values).  Each buffer grows to the largest call
+    seen."""
+
+    _DTYPES = {"best": torch.int32, "count": torch.int32, "list": torch.int32,
+               "s": torch.int64, "tk": torch.int32, "tv": torch.int64}
 
     def __init__(self):
         self._bufs: dict = {}
 
-    def buffers(self, dev, stream, B: int, E: int, K2: int, R: int) -> dict:
+    @staticmethod
+    def need(B: int, E: int, K: int, K2: int, R: int) -> dict:
+        """{buffer: elements} that one call needs (0: not used)."""
+        glob = select_in_global(E, K, K2, R)
+        cap = _rank_size(max(K, R))
+        T = select_table_slots(E, K2) + SELECT_MAX_CLUSTER  # rounded up to C slots a CTA
+        return {"best": B, "count": B, "list": B * E,
+                "s": B * SELECT_MAX_CLUSTER * cap if glob else 0,
+                "tk": B * T if glob else 0, "tv": B * T if glob else 0}
+
+    @classmethod
+    def nbytes(cls, B: int, E: int, K: int, K2: int, R: int) -> int:
+        """Bytes of scratch one call needs."""
+        return sum(n * cls._DTYPES[k].itemsize for k, n in cls.need(B, E, K, K2, R).items())
+
+    def buffers(self, dev, stream, B: int, E: int, K: int, K2: int, R: int) -> dict:
         bufs = self._bufs.setdefault((dev, stream), {})
-        K2e = min(K2, E)
-        N = max(R, K2e)
-        glob = N > SELECT_SHARED_CAP
-        need = {"best": B, "count": B, "list": B * E,
-                "x": B * _sort_size(N) if glob else 0, "y": B * N if glob else 0,
-                "w": B * _sort_size(K2e) if glob else 0}
+        need = self.need(B, E, K, K2, R)
         for name, n in need.items():
             have = bufs.get(name)
             if n and (have is None or have.numel() < n):
+                dt = self._DTYPES[name]
                 if name == "best":
-                    bufs[name] = torch.full((n,), BIG_I32, dtype=torch.int32, device=dev)
+                    bufs[name] = torch.full((n,), BIG_I32, dtype=dt, device=dev)
                 elif name == "count":
-                    bufs[name] = torch.zeros(n, dtype=torch.int32, device=dev)
+                    bufs[name] = torch.zeros(n, dtype=dt, device=dev)
                 else:
-                    dt = torch.int32 if name == "y" else torch.int64
                     bufs[name] = torch.empty(n, dtype=dt, device=dev)
         return {k: bufs[k] if n else None for k, n in need.items()}
 
 
 def select_v4(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2, R, out,
-              scratch=None):
-    """`select_v4_plain` as the kernel select_v4 (two launches, no sort) on
-    CUDA tensors; the plain version on CPU tensors.  The pool must be as
-    `expand_v4` writes it: a candidate keyed below BIG has a next state
-    below S.  The record planes in `out` may be views of [T, B, K|R]
-    buffers at frame t (rows contiguous); valid may be a column of a [B, T]
-    mask.  scratch: a `SelectScratch` kept across calls (a fresh one per
-    call when None).  `select_v4.launches` counts kernel calls."""
+              scratch=None, stats=None):
+    """`select_v4_plain` as the kernel select_v4 (two launches: a scan, then
+    a cluster of CTAs per channel; no sort of the pool) on CUDA tensors; the
+    plain version on CPU tensors.  The pool must be as `expand_v4` writes
+    it: a candidate keyed below BIG has a next state below S.  The record
+    planes in `out` may be views of [T, B, K|R] buffers at frame t (rows
+    contiguous); valid may be a column of a [B, T] mask.  scratch: a
+    `SelectScratch` kept across calls (a fresh one per call when None).
+    stats: None, or a [B, 3] int32 CUDA tensor that the kernel fills, for
+    each unmasked channel, with pass 1's list length, the candidates in
+    range of the beams and the winners (one per next state) before the cut
+    at K.  `select_v4.launches` counts kernel calls."""
     tok_state, tok_cost, tok_tsil = frontier["state"], frontier["cost"], frontier["tsil"]
     _check_2d("frontier state", tok_state, torch.int32)
     B, K = tok_state.shape
@@ -373,22 +411,27 @@ def select_v4(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2,
     dense = (cbits, nsm, pm, tok_state, tok_cost, tok_tsil, *(out[k] for k in RECORD_PLANES))
     if not all(x.is_contiguous() for x in dense):
         raise ValueError("select_v4 needs a contiguous pool, frontier and record rows")
-    if B > 65535 or E >= 2**31 or K2 < 1 or R < 1:
+    if B > 65535 or E >= 2**31 - 2**16 or K2 < 1 or R < 1:
         raise ValueError(f"select_v4 shape out of range: B={B} E={E} R={R} K2={K2}")
     new = {k: torch.empty_like(v) for k, v in frontier.items()}
     if B == 0 or E == 0:
         return new, out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    buf = (scratch if scratch is not None else SelectScratch()).buffers(dev, stream, B, E, K2, R)
+    buf = (scratch if scratch is not None else SelectScratch()).buffers(
+        dev, stream, B, E, K, K2, R)
     ptr = {k: None if v is None else v.data_ptr() for k, v in buf.items()}
+    if stats is not None:
+        _check_2d("stats", stats, torch.int32, B, 3)
+        if stats.device != dev or not stats.is_contiguous():
+            raise ValueError("stats must be a contiguous [B, 3] int32 tensor beside the pool")
     with torch.cuda.device(dev):
         err = _kernel("vt_select_v4")(
             cbits.data_ptr(), nsm.data_ptr(), pm.data_ptr(), E, tok_state.data_ptr(),
             tok_cost.data_ptr(), tok_tsil.data_ptr(), valid.data_ptr(), valid.stride(0),
             float(beam), float(lattice_beam), B, K, K2, R, S, mbits, ptr["best"],
             ptr["count"], ptr["list"], new["state"].data_ptr(), new["cost"].data_ptr(),
-            new["tsil"].data_ptr(), *(out[k].data_ptr() for k in RECORD_PLANES), ptr["x"],
-            ptr["y"], ptr["w"], stream)
+            new["tsil"].data_ptr(), *(out[k].data_ptr() for k in RECORD_PLANES), ptr["s"],
+            ptr["tk"], ptr["tv"], None if stats is None else stats.data_ptr(), stream)
     _launched("select_v4", err)
     select_v4.launches += 1
     return new, out

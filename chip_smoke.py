@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only | --csr-only]
+    python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only | --csr-only
+                           | --mesh-only]
 
-(`--rescoring-only` / `--pitch-only` / `--training-only` / `--csr-only`
-build the kernels and run phase 12 / 13 / 15 / 16 alone, with no result
-line; `--csr-only` builds phase 4's model and phase 10's directory first.)  Phases, each of which raises on failure
+(`--rescoring-only` / `--pitch-only` / `--training-only` / `--csr-only` /
+`--mesh-only` build the kernels and run phase 12 / 13 / 15 / 16 / 17 alone,
+with no result line; `--csr-only` builds phase 4's model and phase 10's
+directory first, `--mesh-only` phase 4's model and phase 11's v3 decoder.)  Phases, each of which raises on failure
 (the script then exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
@@ -192,6 +194,36 @@ line; `--csr-only` builds phase 4's model and phase 10's directory first.)  Phas
      bit-equal; every eps round must go through viterbi_csr.eps_level and
      some eps-round lattice arc must leave a hub.  Phase 16 lines carry
      the card's name and power limit.
+ 17. (run after 16 a and c, on phase 4's model and phase 11's v3 decoder)
+     the device mesh and the sharded search, each mesh's ranks being
+     processes (parallel/launch.py run_group) that share the card over
+     gloo, so nothing here measures scaling; the ranks load the parent's
+     prepared decoders from torch.save files: (a) mesh (1, 4): gloo's MIN
+     all-reduce of int32 and all_gather on CUDA tensors; the sharded v4
+     decode of two 8-frame chunks of plausible scores at B = 32, counts
+     zeroed just before: every rank agrees, and best, best-final, the
+     frontier, the pm / state / f_cost planes and every channel's
+     traceback equal the unsharded decode_chunk's on the card (the lattice
+     planes differ by design: the source keys candidates past the synced
+     beam BIG); each rank's expand_v4 stripe (slot_base i, slot_stride 4)
+     and the merged pool through select_v4 against their plain versions,
+     bit for bit, timed in rank 0 beside the unsharded pool, on a light
+     frame and on phase 4's loaded one (every rank's contribution
+     overflows); from that loaded frontier a 4-frame sharded chunk whose
+     best, best-final and tracebacks equal the unsharded decode's; one
+     chunk profiled in rank 0 (expand_v4 once and select_v4's two kernels
+     a frame, no gather_rows); then mesh (1, 2); (b) the sharded v3 step
+     on the raw graph, mesh (1, 2), one chunk: best, best-final, frontier
+     and tracebacks equal the unsharded v3 decode's, gather_rows launched;
+     a CPU gloo group then runs (a)'s (1, 4) decode, equal record planes
+     included; (c) FusedPipeline(mesh=(2, 2)).run_scan at phase 8's point:
+     each channel's data-parallel decode from the same scores bit-equal,
+     the tensor-parallel AM's ll within TP_LL_TOL and TP_SHARE_TOL and the
+     best costs within TP_BEST_ATOL of the unsharded pipeline, and three
+     planted faults of the tensor-parallel forward (TP_FAULTS) reading
+     above those ll bounds; ms a
+     decoded frame beside phase 8's.  Phase 17 lines carry the card's name
+     and power limit.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -1142,6 +1174,7 @@ def phase_v3(torch, bm, tmp):
               ("v3_tsil", "int32", B, dec.K, dec.K),
               ("v3_state", "int32", B, dec.K, dec.Eb),
               ("v3_eps_tsil", "int32", B, dec.K, dec.K))
+    torch.save(dec.to("cpu"), Path(tmp) / V3_DECODER)  # for phase 17 (b)
     del pipe, dec, chunks
     gc.collect()
     launches["v3_auto"], launches["v3_auto_batch"] = phase_v3_auto(torch, bm, tmp)
@@ -2686,6 +2719,560 @@ def phase_csr_eps(torch, bm):
     return launches
 
 
+# ------------------------------------------------------------------ phase 17
+
+MESH_T = 8                 # phase 17's chunks: frames each, two of them
+MESH_V3_T = 6              # (b)'s one v3 chunk
+MESH_LOADED_T = 4          # (a)'s chunk from the loaded frontier
+MESH_PIPE = (2, 2)         # (c)'s mesh
+# (c): the tensor-parallel AM's ll may differ from the unsharded one's by at
+# most TP_LL_TOL x max|ll|, and at most a share TP_SHARE_TOL of its elements
+# may lie outside tests/test_multichip.py's rtol TP_RTOL / atol TP_ATOL; best
+# costs by at most TP_BEST_ATOL.  A bf16 forward moves with the summation
+# order of its products (bf16 rounding of each layer's input amplifies it),
+# so the card's unsharded AM against the CPU's already leaves about 0.9 % of
+# the elements outside that element-wise tolerance, and the bounds are read
+# over the whole ll.  On the card the sound tensor-parallel AM read 0.72 %
+# of max|ll| and 1.29 % of elements (the unsharded AM against the CPU: 0.65
+# and 0.89 %), each planted fault of TP_FAULTS 65.6-140.7 % and 38.9-40.5 %;
+# best costs moved 0.0135 (test_multichip allows rtol 0.05, atol 0.2)
+TP_LL_TOL = 2e-2
+TP_SHARE_TOL = 5e-2
+TP_RTOL, TP_ATOL = 0.05, 0.2
+TP_BEST_ATOL = 0.05
+# (c)'s planted faults (`tp_faults`), each of which must read above both
+# ll bounds
+TP_FAULTS = ("gather_reversed", "block_tdnnf10_aff_w", "block_prefinal_l2")
+
+
+V3_DECODER = "phase11_v3_decoder.pt"  # phase 11's raw-graph decoder, saved for phase 17
+
+
+def mesh_inputs(tmp):
+    """Phase 17's inputs for the ranks, one file each: the v4 decoder, the
+    v3 decoder, and the scores and audio."""
+    return {k: str(Path(tmp) / f"phase17_{k}.pt") for k in ("v4", "data", "pipe")} | {
+        "v3": str(Path(tmp) / V3_DECODER)}
+
+
+def frame_kernels(torch, prof, T):
+    """{device kernel, copy or memset: [launches a frame, device us a frame]}
+    of a profile over T frames."""
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            c, us = rows.get(ev.name, (0, 0.0))
+            rows[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
+    if not rows:
+        raise AssertionError("the profiler recorded no device kernel")
+    return {k: [c / T, round(us / T, 3)] for k, (c, us) in rows.items()}
+
+
+def stripe_kernels(torch, dec, mesh, fr, llt):
+    """The sharded v4 step's kernels on one frame in a rank (fr: the whole
+    frontier, llt [B, P]): its stripe of expand_v4 and the merged pool
+    through select_v4, each against its plain version bit for bit, and how
+    many of the stripe's candidates lie within the synced beam against its
+    contribution C.  Rank 0 times both beside the unsharded pool's
+    select_v4; the other ranks wait at a barrier (the card is rank 0's)."""
+    import torch.distributed as dist
+
+    from vosk_tpu_torch.ops import frame_step as fs, viterbi_v3
+
+    i, n = viterbi_v3.shard_coordinate(mesh)
+    B = llt.shape[0]
+    ex = (dec.em_pack, fr["state"], fr["cost"], llt, dec.params.acoustic_scale, dec.S,
+          dec.M, dec.mbits, None)
+    got = fs.expand_v4(*ex, slot_base=i, slot_stride=n)
+    want = fs.expand_v4_plain(*ex, slot_base=i, slot_stride=n)
+    torch.cuda.synchronize()
+    err = max(bit_err(torch, a, b) for a, b in zip(got, want))
+    pool = viterbi_v3.shard_candidates(dec, mesh, got[0], got[1:], dec.K // n)
+    C = min(got[0].shape[1], viterbi_v3.SHARD_SLACK * (dec.K // n))
+    thresh = fs.cost_bits(fs.bits_cost(pool[0].amin(1)) + dec.params.beam)
+    in_beam = (got[0] <= thresh[:, None]).sum(1)
+    valid = torch.ones(B, dtype=torch.bool, device=llt.device)
+    sel = (*pool, fr, valid, dec.params.beam, dec.params.lattice_beam, dec.S, dec.mbits,
+           dec.K2, dec.R)
+    k_out = {k: v[0] for k, v in dec.record_buffers((1, B)).items()}
+    p_out = {k: v[0] for k, v in dec.record_buffers((1, B)).items()}
+    kf, _ = fs.select_v4(*sel, k_out, scratch=dec._select_scratch)
+    pf, _ = fs.select_v4_plain(*sel, p_out)
+    torch.cuda.synchronize()
+    s_err = max(bit_err(torch, kf[k], pf[k]) for k in kf)
+    s_err = max(s_err, *(bit_err(torch, k_out[k], p_out[k]) for k in k_out))
+    out = {"expand_err": err, "select_err": s_err, "pool": pool[0].shape[1], "C": C,
+           "in_beam": (int(in_beam.min()), int(in_beam.max())),
+           "overflowed": int((in_beam > C).sum())}
+    if dist.get_rank() == 0:
+        times = {}
+        for s in range(n):
+            ms = event_ms(torch, lambda: fs.expand_v4(*ex, slot_base=s, slot_stride=n))
+            plain_ms = event_ms(torch, lambda: fs.expand_v4_plain(
+                *ex, slot_base=s, slot_stride=n), n=10)
+            nb, ops = expand_work(torch, dec, {k: v[:, s::n] for k, v in fr.items()},
+                                  llt.shape[1])
+            times[f"expand_stripe{s}"] = (ms, plain_ms, *bound(nb, ops))
+        whole = fs.expand_v4(*ex)
+        for name, p in (("select_merged", pool), ("select_whole", whole)):
+            a = (*p, *sel[len(pool):])
+            ms = event_ms(torch, lambda: fs.select_v4(*a, k_out, scratch=dec._select_scratch))
+            plain_ms = event_ms(torch, lambda: fs.select_v4_plain(*a, p_out), n=10)
+            rec = fs.select_v4_plain(*a, p_out)[1]
+            times[name] = (ms, plain_ms, *bound(*select_work(
+                torch, p, valid, dec.params.beam, dec.params.lattice_beam, rec)),
+                event_ms(torch, lambda: torch.sort(p[0], dim=1, stable=True)))
+        out["times"] = times
+    dist.barrier()
+    return out
+
+
+def loaded_tracebacks(dec, rec, fr, start):
+    """Every channel's traceback through one chunk of records that starts
+    from the frontier `start` (not the utterance's start)."""
+    return [dec.traceback_with_frames([rec], fr, b, at_start=False,
+                                      init_states=start["state"][b].numpy())
+            for b in range(start["state"].shape[0])]
+
+
+def mesh_rank(mesh, paths, jobs):
+    """Phase 17's work in one rank of a mesh (a spawned process; the ranks
+    of a card mesh share cuda:0 over gloo).  jobs: "gloo" (gloo's MIN
+    all-reduce of int32 and all_gather of CUDA tensors), "v4" (the sharded
+    v4 decode of the two chunks, counts zeroed just before), "kernels"
+    (`stripe_kernels` on a light frame and on a loaded one), "loaded" (the
+    sharded v4 decode of a chunk from the loaded frontier), "profile" (one
+    more sharded chunk under torch.profiler), "v3" (the sharded v3 decode
+    of one chunk), "pipe" (FusedPipeline(mesh) at phase 8's point).
+    Returns what the parent checks, on the host."""
+    import torch
+    import torch.distributed as dist
+
+    from vosk_tpu_torch.ops import frame_step as fs
+    from vosk_tpu_torch.ops.gather import gather_rows
+    from vosk_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = mesh.device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    inp = torch.load(paths["data"], weights_only=False)
+    r = dist.get_rank()
+    out = {"device": str(dev)}
+
+    def host(x):
+        return {k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu()
+
+    def counts():
+        return {"expand_v4": fs.expand_v4.launches, "select_v4": fs.select_v4.launches,
+                "gather_rows": gather_rows.launches}
+
+    if "gloo" in jobs:
+        x = torch.tensor([7 - r, -(2**31) + r, 2**31 - 1 - r], dtype=torch.int32, device=dev)
+        g = torch.full((2, 3), r, dtype=torch.int32, device=dev)
+        out["gloo"] = (pm.all_reduce_min(mesh, "model", x).cpu(),
+                       pm.all_gather_cat(mesh, "model", g, 1).cpu(),
+                       dist.get_backend(mesh.get_group("model")))
+    if "v4" in jobs:
+        dec = torch.load(paths["v4"], weights_only=False).to(dev)
+        chunks = [c.to(dev) for c in inp["chunks"]]
+        B = chunks[0].shape[0]
+        fr, recs, secs = dec.init_frontier(B), [], []
+        sync()
+        zero_counts()  # the sharded path's kernel counts, just before it
+        for c in chunks:
+            t0 = time.perf_counter()
+            fr, rec, best, bestf = dec.decode_chunk_sharded(mesh, fr, c)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            recs.append(host(rec))
+            if len(recs) == 1:
+                mid = host(fr)
+        out["v4"] = {"counts": counts(), "frontier": host(fr), "records": recs,
+                     "best": best.cpu(), "best_final": bestf.cpu(), "secs": secs,
+                     "tracebacks": [dec.traceback_with_frames(recs, fr, b) for b in range(B)]}
+    if "kernels" in jobs:
+        # one real frame: the frontier after chunk 1, chunk 2's first scores;
+        # and one under load (phase 4's loaded_frame), whose contributions overflow
+        ld = inp["loaded"]
+        out["kernels"] = {
+            "light": stripe_kernels(torch, dec, mesh, {k: v.to(dev) for k, v in mid.items()},
+                                    chunks[1][:, 0]),
+            "loaded": stripe_kernels(torch, dec, mesh, {k: v.to(dev) for k, v in
+                                                        ld["frontier"].items()},
+                                     ld["frame"].to(dev))}
+    if "loaded" in jobs:  # the sharded decode of a chunk whose contributions overflow
+        ld = inp["loaded"]
+        t0 = time.perf_counter()
+        fr, rec, best, bestf = dec.decode_chunk_sharded(
+            mesh, {k: v.to(dev) for k, v in ld["frontier"].items()}, ld["chunk"].to(dev))
+        sync()
+        out["loaded"] = {"secs": time.perf_counter() - t0, "frontier": host(fr),
+                         "best": best.cpu(), "best_final": bestf.cpu(),
+                         "tracebacks": loaded_tracebacks(dec, host(rec), fr, ld["frontier"])}
+    if "profile" in jobs:
+        from torch.profiler import ProfilerActivity, profile
+
+        fr = {k: v.to(dev) for k, v in mid.items()}
+        dec.decode_chunk_sharded(mesh, fr, chunks[1])  # warm
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dec.decode_chunk_sharded(mesh, fr, chunks[1])
+            sync()
+        out["profile"] = frame_kernels(torch, prof, chunks[1].shape[1])
+    if "v3" in jobs:
+        d3 = torch.load(paths["v3"], weights_only=False).to(dev)
+        c3 = inp["v3_chunk"].to(dev)
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        fr, rec, best, bestf = d3.decode_chunk_sharded(mesh, d3.init_frontier(c3.shape[0]), c3)
+        sync()
+        out["v3"] = {"counts": counts(), "secs": time.perf_counter() - t0,
+                     "frontier": host(fr), "best": best.cpu(), "best_final": bestf.cpu(),
+                     "tracebacks": [d3.traceback_with_frames([rec], fr, b)
+                                    for b in range(c3.shape[0])]}
+    if "pipe" in jobs:
+        out["pipe"] = mesh_pipeline(torch, mesh, inp, torch.load(paths["pipe"], weights_only=False),
+                                    torch.load(paths["v4"], weights_only=False), dev)
+    return out
+
+
+def mesh_pipeline(torch, mesh, inp, pipe_inp, dec, dev):
+    """17c in one rank: FusedPipeline(mesh) on phase 4's directory (its
+    prepared decoder loaded, not rebuilt) at phase 8's point; the AM's ll of
+    the first chunk; the rank's channels decoded from the same scores as
+    the unsharded decode."""
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.parallel import mesh as pm
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    nm = native.load_model(pipe_inp["model_dir"], device=dev)
+    nm._decoder = dec.to(dev)
+    audio, ll_bias = pipe_inp["audio"], pipe_inp["ll_bias"]
+    pipe = FusedPipeline(nm, batch=audio.shape[1], chunk_seconds=0.48, mesh=mesh)
+    pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts("17c run_scan")
+    st = pipe.init_state()
+    a0 = pipe._as_device(audio[0], torch.float32, 0)
+    n0 = torch.full((pipe.local_B,), audio.shape[2], dtype=torch.int32, device=dev)
+    _, feats, fvalid = pipe.ex.extract_chunk(st["feat"], a0, n_samples=n0)
+    _, ll, _ = pipe.am.process_chunk(st["am"], feats, fvalid)
+    chans = pipe.channels
+    dp = pipe.dec.decode_chunk(pipe.dec.init_frontier(pipe.local_B),
+                               inp["chunks"][0][chans].to(dev))
+    return {"best": pm.gather_channels(mesh, best, dim=1).cpu(),
+            "ll": pm.gather_channels(mesh, ll).cpu(),
+            "faults": tp_faults(torch, mesh, pipe, nm.am_params, st["am"], feats, fvalid),
+            "dp_frontier": {k: v.cpu() for k, v in pm.gather_channels(mesh, dp[0]).items()},
+            "dp_records": {k: v.cpu() for k, v in pm.gather_channels(mesh, dp[1], 1).items()},
+            "secs": secs, "frames": audio.shape[0] * pipe.T, "launches": launches,
+            "tp_shapes": {k: tuple(v.shape) for k, v in pipe.am.params.items()},
+            "tp_dims": dict(pipe.am.shard_dims)}
+
+
+def tp_faults(torch, mesh, pipe, params, am_state, feats, fvalid):
+    """{fault: the tensor-parallel AM's ll of (c)'s first chunk, every
+    channel} with each of TP_FAULTS planted in every rank, one at a time:
+    the blocks of the model axis' all_gather concatenated in reverse rank
+    order, or a rank holding the other rank's column block of one weight
+    (bf16-rounded, as the model stores it).  What a wrong tensor-parallel
+    forward reads, beside what the sound one reads."""
+    from vosk_tpu_torch.models import tdnnf
+    from vosk_tpu_torch.parallel import mesh as pm
+
+    real, am = tdnnf.TensorParallelOps, pipe.am
+    r, n = mesh.get_local_rank("model"), pm.axis_size(mesh, "model")
+
+    class GatherReversed(real):
+        def __init__(self, *a):
+            super().__init__(*a)
+            gather = self._gather
+            self._gather = lambda t: torch.cat(gather(t).tensor_split(self.n, -1)[::-1], -1)
+
+    def ll():
+        _, out, _ = am.process_chunk(am_state, feats, fvalid)
+        return pm.gather_channels(mesh, out).cpu()
+
+    out = {}
+    for fault in TP_FAULTS:
+        if fault == "gather_reversed":
+            tdnnf.TensorParallelOps = GatherReversed
+            try:
+                out[fault] = ll()
+            finally:
+                tdnnf.TensorParallelOps = real
+            continue
+        w = fault.removeprefix("block_")
+        held = am.params[w].data.clone()
+        other = torch.as_tensor(params[w]).tensor_split(n, am.shard_dims[w])[(r + 1) % n]
+        am.params[w].data.copy_(other.to(torch.bfloat16).float())
+        out[fault] = ll()
+        am.params[w].data.copy_(held)
+    return out
+
+
+def same(torch, a, b, what):
+    """Raise unless a and b (tensors or dicts of them) are bit-equal."""
+    for k in (a if isinstance(a, dict) else {None: a}):
+        x, y = (a[k], b[k]) if k is not None else (a, b)
+        if not torch.equal(bits(torch, x), bits(torch, y)):
+            raise AssertionError(f"{what}{'' if k is None else f'[{k}]'} differs")
+
+
+def phase_mesh(torch, bm, tmp):
+    """Phase 17: the device mesh and the sharded search on the card, each
+    mesh's ranks being processes that share cuda:0 over gloo (so nothing
+    here measures scaling).  (a) mesh (1, 4) then (1, 2): gloo's collectives
+    on CUDA tensors, then the sharded v4 decode of two 8-frame chunks of
+    plausible scores at B = 32 on phase 4's model (2M states, K = 7000, M =
+    4): every rank agrees; best, best-final, the frontier, the pm, state
+    and f_cost planes and every channel's traceback equal the unsharded
+    decode_chunk's on the card; the (1, 4) run equals, record planes
+    included, the same sharded decode on a CPU gloo group (the plain
+    versions, run after the card groups so that it shares no time with
+    them); each rank's expand_v4 stripe and the merged pool through
+    select_v4 against their plain versions, bit for bit, timed beside the
+    unsharded pool, on a light frame and on phase 4's loaded one, whose
+    contributions overflow; from that loaded frontier, a sharded chunk
+    whose best, best-final and tracebacks equal the unsharded decode's;
+    one chunk profiled in a rank; (b) the sharded v3 step on phase 11's
+    raw-graph decoder, mesh (1, 2), one chunk, equal to the unsharded v3
+    decode, gather_rows launched; (c) FusedPipeline(mesh=(2,
+    2)).run_scan at phase 8's point: the data-parallel decode of each
+    channel from the same scores bit-equal, the tensor-parallel AM's ll
+    within TP_LL_TOL and TP_SHARE_TOL and the best costs within
+    TP_BEST_ATOL of the unsharded pipeline, and each of TP_FAULTS reading
+    above both ll bounds.  Returns
+    (launches by path, kernel times)."""
+    from vosk_tpu_torch.parallel.launch import run_group
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    t_phase = time.perf_counter()
+    dec = bm._pipeline.dec
+    model = bm._model
+    P = model.am_config.num_pdfs
+    chunks, _ = plausible_chunks(torch, model.graph, P, (MESH_T, MESH_T), SEED + 17)
+    c3, _ = plausible_chunks(torch, model.graph, P, (MESH_V3_T,), SEED + 18)
+    lfr, lll = loaded_frame(torch, bm)
+    g = torch.Generator().manual_seed(SEED + 19)  # more of loaded_frame's flat scores
+    lchunk = torch.randn((B, MESH_LOADED_T, P), generator=g) * 0.1
+    lfr = {k: v.cpu() for k, v in lfr.items()}
+    pipe = FusedPipeline(model, batch=B, chunk_seconds=0.48)
+    _, audio, ll_bias = bench_inputs(torch, pipe)
+    paths = mesh_inputs(tmp)
+    torch.save(dec.to("cpu"), paths["v4"])
+    torch.save({"chunks": chunks, "v3_chunk": c3[0],
+                "loaded": {"frontier": lfr, "frame": lll[:, -1].cpu(), "chunk": lchunk}},
+               paths["data"])
+    torch.save({"audio": audio.cpu(), "ll_bias": ll_bias.cpu(),
+                "model_dir": str(Path(tmp) / "bench_model")}, paths["pipe"])
+    # the unsharded references on the card
+    ref_fr, ref_recs = dec.init_frontier(B), []
+    for c in chunks:
+        ref_fr, rec, ref_best, ref_bestf = dec.decode_chunk(ref_fr, c.to(dec.device))
+        ref_recs.append({k: v.cpu() for k, v in rec.items()})
+        if len(ref_recs) == 1:
+            ref_mid = {k: v.cpu() for k, v in ref_fr.items()}
+    ref_tb = [dec.traceback_with_frames(ref_recs, ref_fr, b) for b in range(B)]
+    ref_fr = {k: v.cpu() for k, v in ref_fr.items()}
+    lref = dec.decode_chunk({k: v.to(dec.device) for k, v in lfr.items()},
+                            lchunk.to(dec.device))
+    lref_tb = loaded_tracebacks(dec, {k: v.cpu() for k, v in lref[1].items()}, lref[0], lfr)
+    log(f"phase 17 inputs saved for the ranks: " + ", ".join(
+        f"{k} {Path(p).stat().st_size} bytes" for k, p in paths.items()))
+
+    def check_v4(res, n, what):
+        for r in res[1:]:
+            same(torch, r["v4"]["frontier"], res[0]["v4"]["frontier"], f"{what} rank frontier")
+        got = res[0]["v4"]
+        same(torch, got["best"], ref_best.cpu(), f"{what} best")
+        same(torch, got["best_final"], ref_bestf.cpu(), f"{what} best_final")
+        same(torch, got["frontier"], ref_fr, f"{what} frontier")
+        for a, b in zip(got["records"], ref_recs):
+            for k in ("pm", "state", "f_cost"):
+                same(torch, a[k], b[k], f"{what} records {k}")
+        if got["tracebacks"] != ref_tb:
+            raise AssertionError(f"{what}: a traceback differs from the unsharded decode's")
+        c = got["counts"]
+        if c["expand_v4"] != 2 * MESH_T or c["select_v4"] != 2 * MESH_T or c["gather_rows"]:
+            raise AssertionError(f"{what}: the sharded v4 path launched {c}")
+        live = torch.isfinite(got["frontier"]["cost"]).sum(1)
+        log(f"17a mesh (1, {n}) sharded v4 decode B={B} K={dec.K} M={dec.M} 2x{MESH_T} "
+            f"frames: every rank agrees; best, best-final, frontier, pm/state/f_cost and "
+            f"{B} tracebacks equal the unsharded decode's; live tokens {live.min().item()}-"
+            f"{live.max().item()}; chunk seconds {[round(s, 4) for s in got['secs']]} "
+            f"({n} processes sharing one card, {SMI}); rank 0 {count_line(c)}")
+        return c
+
+    t0 = time.perf_counter()
+    card4 = run_group(mesh_rank, 1, 4, "cuda", "gloo",
+                      args=(paths, ("gloo", "v4", "kernels", "loaded", "profile")), timeout=600)
+    t_card4 = time.perf_counter() - t0
+    mins, gath, backend = card4[0]["gloo"]
+    if mins.tolist() != [4, -(2**31), 2**31 - 4] or gath.tolist() != [[0] * 3 + [1] * 3 +
+                                                                      [2] * 3 + [3] * 3] * 2 \
+            or backend != "gloo" or {r["device"] for r in card4} != {"cuda:0"}:
+        raise AssertionError(f"gloo on CUDA tensors: {card4[0]['gloo']}")
+    log(f"17a gloo on CUDA int32 tensors: MIN all-reduce {mins.tolist()} and all_gather "
+        f"{gath.tolist()[0]} as expected, 4 ranks on cuda:0; the group's run {t_card4:.3f} s")
+    launches = {"mesh_v4": check_v4(card4, 4, "mesh (1, 4)")}
+    times = {}
+    for load in ("light", "loaded"):
+        ks = [r["kernels"][load] for r in card4]
+        if any(k["expand_err"] or k["select_err"] for k in ks):
+            raise AssertionError(f"17a {load}: stripe kernels differ from plain: {ks}")
+        over = sum(k["overflowed"] for k in ks)
+        if (load == "loaded") != (over > 0):
+            raise AssertionError(f"17a {load} frame: {over} contributions overflowed")
+        lo = min(k["in_beam"][0] for k in ks)
+        hi = max(k["in_beam"][1] for k in ks)
+        log(f"17a {load} frame: a rank's stripe holds {lo}-{hi} candidates within the synced "
+            f"beam against its contribution C = {ks[0]['C']}; {over} of {4 * B} rank "
+            f"contributions overflowed")
+        pre = "" if load == "light" else "loaded_"
+        for k, t in ks[0]["times"].items():
+            times[pre + k] = t
+            log(f"17a {load} {k} (B={B}, K={dec.K}, n=4"
+                f"{', pool ' + str(ks[0]['pool']) if k == 'select_merged' else ''}): "
+                f"bit-equal to plain; kernel {t[0]:.6f} ms, plain {t[1]:.6f} ms, bound "
+                f"{t[2]:.6f} ms ({t[3]}), {t[2] / t[0]:.1%} of it"
+                + (f"; stable torch.sort of the pool {t[4]:.6f} ms" if len(t) > 4 else "")
+                + f" ({SMI})")
+    lgot = card4[0]["loaded"]
+    for r in card4[1:]:
+        same(torch, r["loaded"]["frontier"], lgot["frontier"], "17a loaded rank frontier")
+    same(torch, lgot["best"], lref[2].cpu(), "17a loaded best")
+    same(torch, lgot["best_final"], lref[3].cpu(), "17a loaded best_final")
+    if lgot["tracebacks"] != lref_tb:
+        raise AssertionError("17a loaded: a traceback differs from the unsharded decode's")
+    same_ch = sum(all(torch.equal(bits(torch, lgot["frontier"][k][b]),
+                                  bits(torch, lref[0][k][b].cpu())) for k in lfr)
+                  for b in range(B))
+    live = torch.isfinite(lgot["frontier"]["cost"]).sum(1)
+    log(f"17a mesh (1, 4) sharded v4 decode of {MESH_LOADED_T} frames from the loaded "
+        f"frontier (live tokens {live.min().item()}-{live.max().item()}): best, best-final "
+        f"and {B} tracebacks equal the unsharded decode's; {same_ch} of {B} channels' "
+        f"frontiers equal; {lgot['secs']:.3f} s ({SMI})")
+    del lref
+    prof = card4[0]["profile"]
+    hand = {k: v[0] for k, v in prof.items() if "expand_v4" in k or "select_v4" in k
+            or "gather_rows" in k}
+    log("17a rank 0's profiled sharded chunk (launches, device us a frame): "
+        + json.dumps({k[:70]: v for k, v in sorted(prof.items(), key=lambda kv: -kv[1][1])}))
+    if sum(v for k, v in hand.items() if "expand_v4" in k) != 1 \
+            or sum(v for k, v in hand.items() if "select_v4" in k) != 2 \
+            or any("gather_rows" in k for k in hand):
+        raise AssertionError(f"a rank's frame step launched hand kernels {hand}")
+    t0 = time.perf_counter()
+    card2 = run_group(mesh_rank, 1, 2, "cuda", "gloo", args=(paths, ("v4", "v3")),
+                      timeout=600)
+    t_card2 = time.perf_counter() - t0
+    launches["mesh_v4_2"] = check_v4(card2, 2, "mesh (1, 2)")
+    # (b) the v3 sharded step against the unsharded v3 decode on the card
+    d3 = torch.load(paths["v3"], weights_only=False).to(dec.device)
+    fr3, rec3, b3, bf3 = d3.decode_chunk(d3.init_frontier(B), c3[0].to(dec.device))
+    tb3 = [d3.traceback_with_frames([rec3], fr3, b) for b in range(B)]
+    got3 = card2[0]["v3"]
+    same(torch, got3["best"], b3.cpu(), "17b best")
+    same(torch, got3["best_final"], bf3.cpu(), "17b best_final")
+    same(torch, got3["frontier"], {k: v.cpu() for k, v in fr3.items()}, "17b frontier")
+    if got3["tracebacks"] != tb3:
+        raise AssertionError("17b: a v3 traceback differs from the unsharded decode's")
+    c = got3["counts"]
+    if c["gather_rows"] <= 0 or c["expand_v4"] or c["select_v4"]:
+        raise AssertionError(f"17b: the sharded v3 path launched {c}")
+    launches["mesh_v3"] = c
+    # the gather kernel at the sharded v3 ll site: a stripe of K / 2 tokens
+    gather_times, gather_err = phase_kernel(torch, dec.device, cases=(
+        ("mesh_v3_ll", "float32", B, P, (d3.K // 2) * d3.M),))
+    del d3, fr3, rec3
+    log(f"17b mesh (1, 2) sharded v3 decode B={B} K={dec.K} T={MESH_V3_T} on the raw graph: "
+        f"best, best-final, frontier and {B} tracebacks equal the unsharded v3 decode's; "
+        f"{c['gather_rows'] // MESH_V3_T} gather launches a frame in rank 0; "
+        f"{got3['secs']:.3f} s; the (1, 2) group {t_card2:.3f} s")
+    # the same (1, 4) sharded decode on a CPU gloo group, after the card groups
+    t0 = time.perf_counter()
+    cpu4 = run_group(mesh_rank, 1, 4, "cpu", "gloo", args=(paths, ("v4",)), timeout=600)
+    for a, b in zip(card4[0]["v4"]["records"], cpu4[0]["v4"]["records"]):
+        same(torch, a, b, "card vs CPU sharded records")
+    same(torch, card4[0]["v4"]["frontier"], cpu4[0]["v4"]["frontier"], "card vs CPU frontier")
+    log(f"17a mesh (1, 4) on a CPU gloo group (plain versions): frontier and all five "
+        f"record planes bit-equal to the card's; the CPU group {time.perf_counter() - t0:.3f} s")
+    # (c) the pipeline on mesh (2, 2) against the unsharded one, whose AM
+    # also runs on the CPU for the card's own bf16 noise
+    from vosk_tpu_torch.models.tdnnf import TdnnfModel
+
+    st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)
+    st0 = pipe.init_state()
+    n0 = torch.full((B,), audio.shape[2], dtype=torch.int32, device=pipe.device)
+    _, feats, fvalid = pipe.ex.extract_chunk(st0["feat"], audio[0], n_samples=n0)
+    _, ll0, _ = pipe.am.process_chunk(st0["am"], feats, fvalid)
+    am_cpu = TdnnfModel(pipe.am.cfg, model.am_params, device="cpu")
+    _, ll_cpu, _ = am_cpu.process_chunk(am_cpu.init_stream_state(B, pipe.F), feats.cpu(),
+                                        fvalid.cpu())
+    best, ll0 = best.cpu(), ll0.cpu()
+    del st, recs, am_cpu
+    t0 = time.perf_counter()
+    res = run_group(mesh_rank, *MESH_PIPE, "cuda", "gloo", args=(paths, ("pipe",)),
+                    timeout=600)
+    got = res[0]["pipe"]
+    for r in res:  # each rank holds 1 / n_model of every parameter the rule shards
+        for k, shape in r["pipe"]["tp_shapes"].items():
+            want, dim = list(model.am_params[k].shape), r["pipe"]["tp_dims"][k]
+            if dim is not None:
+                want[dim] //= MESH_PIPE[1]
+            if shape != tuple(want):
+                raise AssertionError(f"17c rank parameter {k} {shape}, not {tuple(want)}")
+    same(torch, got["dp_frontier"], ref_mid, "17c data-parallel frontier")
+    same(torch, got["dp_records"], ref_recs[0], "17c data-parallel records")
+    scale = ll0.abs().max().item()
+
+    def reading(ll):
+        """(max |ll - ll0| over max|ll0|, the share of elements outside
+        TP_RTOL / TP_ATOL of ll0)."""
+        d = (ll - ll0).abs()
+        return d.max().item() / scale, (d > TP_ATOL + TP_RTOL * ll0.abs()).float().mean().item()
+
+    sound, cpu = reading(got["ll"]), reading(ll_cpu)
+    faults = {k: reading(v) for k, v in got["faults"].items()}
+    best_err = (got["best"] - best).abs().max().item()
+    ms = got["secs"] / got["frames"] * 1e3
+    log(f"17c FusedPipeline(mesh={MESH_PIPE}) run_scan B={B} (16 channels a data rank, the "
+        f"TDNN-F over 2 model ranks), {got['frames']} frames: data-parallel decode of every "
+        f"channel bit-equal from the same scores; tensor-parallel AM ll max |diff| "
+        f"{sound[0]:.4%} of max|ll| {scale:.4f} (bound {TP_LL_TOL:.0%}), "
+        f"{sound[1]:.4%} of elements outside rtol {TP_RTOL} / atol {TP_ATOL} (bound "
+        f"{TP_SHARE_TOL:.0%}); the unsharded "
+        f"AM on the card against the CPU: {cpu[0]:.4%}, {cpu[1]:.4%}; planted faults "
+        + ", ".join(f"{k} {v[0]:.4%}, {v[1]:.4%}" for k, v in faults.items())
+        + f"; best max |diff| {best_err:.6g} (bound {TP_BEST_ATOL}) against the unsharded "
+        f"pipeline; {ms:.3f} ms per decoded frame in rank 0 against phase 8's "
+        f"{RUN_SCAN_MS.get('v4', float('nan')):.3f} (4 processes sharing one card, no "
+        f"scaling claim; {SMI}); group {time.perf_counter() - t0:.3f} s; "
+        f"{count_line(got['launches'])}")
+    if not (sound[0] <= TP_LL_TOL and sound[1] <= TP_SHARE_TOL and best_err <= TP_BEST_ATOL
+            and torch.isfinite(got["best"]).all()):
+        raise AssertionError("17c: the tensor-parallel pipeline is outside its tolerances")
+    if any(v[0] <= TP_LL_TOL or v[1] <= TP_SHARE_TOL for v in faults.values()):
+        raise AssertionError(f"17c: a planted fault reads within the bound: {faults}")
+    launches["mesh_pipeline"] = got["launches"]
+    log(f"phase 17 (device mesh, sharded search) took {time.perf_counter() - t_phase:.3f} s")
+    errs = {"expand_err": max(r["kernels"][load]["expand_err"] for r in card4
+                              for load in ("light", "loaded")),
+            "select_err": max(r["kernels"][load]["select_err"] for r in card4
+                              for load in ("light", "loaded")),
+            "gather_err": gather_err}
+    return launches, {**times, **errs, "gather": gather_times}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2740,6 +3327,16 @@ def main() -> int:
             phase_split(torch, tmp)
             log(json.dumps(phase_csr_split(torch, tmp)))
         return 0
+    if sys.argv[1:] == ["--mesh-only"]:  # phase 17 alone (on phases 4 and 11's decoders)
+        from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+        with tempfile.TemporaryDirectory() as tmp:
+            bm = phase_model(torch, dev, tmp)
+            v3 = FusedPipeline(bm._model, batch=B, chunk_seconds=0.48, frame_step="v3").dec
+            torch.save(v3.to("cpu"), Path(tmp) / V3_DECODER)
+            del v3
+            log(json.dumps(phase_mesh(torch, bm, tmp)))
+        return 0
     if sys.argv[1:] == ["--pitch-only"]:  # phase 13 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:
             *_, model, audio, info = phase_pitch(torch, tmp)
@@ -2765,6 +3362,7 @@ def main() -> int:
         launches_csr = {"csr_run_scan": phase_csr_run_scan(torch, bm),
                         "v3_csr_eps": phase_csr_eps(torch, bm)}
         t16 = time.perf_counter() - t16
+        launches_mesh, mesh_times = phase_mesh(torch, bm, tmp)
         del bm
         launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi) = phase_kaldi(torch, tmp)
         kaldi_times, kaldi_err = phase_kernel(torch, dev, cases=(
@@ -2816,9 +3414,11 @@ def main() -> int:
              **rescoring, "pitch": launches_pitch, "pitch_batch": launches_pitch_batch,
              "speaker": launches_speaker, **launches_exact3, "server": launches_server,
              "transcriber": launches_cli, "recipe": launches_recipe, **launches_csr,
+             **launches_mesh,
              **{f"cabi_{k}": {n: v.get(n, 0) for n in ("expand_v4", "select_v4", "gather_rows")}
                 for k, v in launches_cabi.items()}}
-    gather_times = {**b1, **kaldi_times, **split_times, **v3_times}
+    gather_times = {**b1, **kaldi_times, **split_times, **v3_times, **mesh_times["gather"]}
+    max_err = max(max_err, mesh_times["gather_err"])
     kernels = [{
         "name": "gather_rows",
         "route": "cuda",
@@ -2890,6 +3490,39 @@ def main() -> int:
         **{f"exact3_b1_{k}": exact3_times["exact3_b1"]["expand_v4"][i]
            for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))},
     })
+    # the sharded search's call sites (phase 17): expand_v4 over a stripe of
+    # the frontier, select_v4 over the merged pool; launches in rank 0 of
+    # the (1, 4) mesh's sharded decode
+    for name, key, kern, site in (
+            ("expand_v4_stripe", "expand_stripe0", "expand_v4", "vosk_tpu/ops/viterbi.py:879"),
+            ("select_v4_merged_pool", "select_merged", "select_v4",
+             "vosk_tpu/ops/viterbi.py:1105")):
+        t = mesh_times[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vosk_tpu_torch/csrc/frame_step.cu",
+            "replaces": "vosk_tpu/ops/gather.py:33",
+            "call_site": f"{site} via _frame_step_v4_sharded vosk_tpu/ops/viterbi.py:1494",
+            "launches": launches_mesh["mesh_v4"][kern],
+            "max_abs_err": mesh_times[f"{kern.split('_')[0]}_err"],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[2],
+            "bound_by": t[3],
+            "library_ms": t[4] if len(t) > 4 else None,
+            **({f"expand_stripe{s}_{k}": mesh_times[f"expand_stripe{s}"][i] for s in range(4)
+                for i, k in ((0, "ms"), (2, "bound_ms"))} if kern == "expand_v4" else
+               {"whole_pool_ms": mesh_times["select_whole"][0],
+                "whole_pool_plain_ms": mesh_times["select_whole"][1],
+                "whole_pool_bound_ms": mesh_times["select_whole"][2],
+                "loaded_whole_pool_ms": mesh_times["loaded_select_whole"][0],
+                "loaded_whole_pool_plain_ms": mesh_times["loaded_select_whole"][1],
+                "loaded_whole_pool_bound_ms": mesh_times["loaded_select_whole"][2]}),
+            # phase 4's loaded frame, whose rank contributions overflow
+            **{f"loaded_{k}": mesh_times[f"loaded_{key}"][i]
+               for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))},
+        })
     log("rescoring RNNLM (torch ops, no hand kernel): " + json.dumps(rnnlm))
     log("pitch and x-vector (torch ops, no hand kernel): " + json.dumps(
         {"pitch": pitch_info, "speaker": speaker_info}))

@@ -1,6 +1,7 @@
 """vosk_tpu_torch on the card: the gather kernel, the two frame-step
-kernels (expand_v4 over packed16 and exact3 rows, select_v4), the decoder
-with them, the v3 decoder with
+kernels (expand_v4 over packed16 and exact3 rows and over frontier stripes,
+select_v4, also on the sharded search's merged pool), the decoder with
+them, its sharded search over ranks that share the card, the v3 decoder with
 the gather kernel at its four sites, the CSR decoder, a streaming KaldiRecognizer decode
 (v4, and v3 on a graph that keeps labeled eps arcs), a Kaldi-layout
 directory with i-vectors, the rescoring RNNLMs (Kaldi TDNN-LSTM and
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from vosk_tpu_torch.ops import frame_step, viterbi
+from vosk_tpu_torch.ops import frame_step, viterbi, viterbi_v3
 from vosk_tpu_torch.ops.frame_step import (
     expand_v4, expand_v4_plain, select_v4, select_v4_plain,
 )
@@ -165,6 +166,47 @@ def test_expand_kernel_exact3_matches_plain(cuda_device, B, K, M, P, scale):
             assert torch.equal(a, b), (name, stage)
 
 
+@pytest.mark.parametrize("rows,B,K,M,n", [
+    ("packed16", 32, 7000, 4, 4),   # the sharded batch decoder's stripes, one thread a token
+    ("packed16", 1, 7000, 4, 2),    # B = 1: ll row bulk-copied
+    ("packed16", 2, 301, 7, 3),     # one thread a candidate; K not a multiple of n
+    ("exact3", 3, 2000, 4, 4),
+    ("exact3", 3, 2000, 7, 4),
+])
+def test_expand_kernel_stripes_match_plain(cuda_device, rows, B, K, M, n):
+    """expand_v4 over each stripe i of n of the frontier (slot_base i,
+    slot_stride n, read in place) against its plain version on the same
+    CUDA tensors, each way of reading the ll row; pm carries the global
+    slot."""
+    rng = np.random.default_rng(K + M + n)
+    S, P = 5000, 6008
+    if rows == "packed16":
+        em, pdf_bits = _synthetic_rows(rng, S, M, P), None
+    else:
+        em, pdf_bits = _synthetic_exact3_rows(rng, S, M, P)
+    em = em.to(cuda_device)
+    state = torch.from_numpy(rng.integers(0, S + 1, (B, K)).astype(np.int32))
+    state[rng.random((B, K)) < 0.3] = S
+    cost = torch.from_numpy((rng.standard_normal((B, K)) * 10).astype(np.float32))
+    cost[state == S] = float("inf")
+    ll = torch.from_numpy((rng.standard_normal((B, 2, P)) * 4).astype(np.float32))
+    ll = ll.to(cuda_device)[:, 1]
+    state, cost = state.to(cuda_device), cost.to(cuda_device)
+    mbits = max((M - 1).bit_length(), 1)
+    for i in range(n):
+        ref = expand_v4_plain(em, state, cost, ll, 1.0, S, M, mbits, pdf_bits, slot_base=i,
+                              slot_stride=n)
+        assert ref[0].shape == (B, len(range(i, K, n)) * M)
+        for stage in (None, *frame_step.EXPAND_STAGES):
+            before = expand_v4.launches
+            got = expand_v4(em, state, cost, ll, 1.0, S, M, mbits, pdf_bits, stage=stage,
+                            slot_base=i, slot_stride=n)
+            torch.cuda.synchronize()
+            assert expand_v4.launches == before + 1
+            for name, a, b in zip(("cbits", "nsm", "pm"), got, ref):
+                assert torch.equal(a, b), (name, i, stage)
+
+
 @pytest.fixture(scope="module")
 def realistic_graph():
     return make_realistic_graph(num_states=20_000, num_pdfs=64, num_words=500, seed=3)
@@ -215,6 +257,72 @@ def test_select_kernel_matches_plain_real_frames(cuda_device, realistic_graph, B
                      dec.S, dec.M, dec.mbits)
     _same_selection(cuda_device, pool, fr, valid, 10.0, 6.0, dec.S, dec.mbits, dec.K2, dec.R)
     assert (dec.R > dec.K) == (K < 2048)
+
+
+@pytest.mark.parametrize("K,n", [(256, 4), (2048, 2)])
+def test_select_kernel_on_a_merged_pool(cuda_device, realistic_graph, K, n):
+    """select_v4 on the sharded search's pool: n stripes' cost-sorted best
+    SHARD_SLACK * K/n candidates within the synced beam, concatenated in
+    rank order (as `viterbi_v3.shard_candidates` merges them), a pool
+    narrower than K*M (and than R at K = 256)."""
+    B = 4
+    dec = BatchViterbi(realistic_graph, DecodeParams(beam=10.0, max_active=K, lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True,
+                       device=cuda_device)
+    gen = torch.Generator().manual_seed(K + n)
+    ll = (torch.randn((B, 16, 64), generator=gen) * 0.1).to(cuda_device)
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(B), ll[:, :15])
+    valid = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    valid[1] = False
+    parts = []
+    for i in range(n):
+        cb, nsm, pm = expand_v4(dec.em_pack, fr["state"], fr["cost"], ll[:, 15], 1.0, dec.S,
+                                dec.M, dec.mbits, slot_base=i, slot_stride=n)
+        C = min(cb.shape[1], viterbi_v3.SHARD_SLACK * (K // n))
+        cbs, order = torch.sort(cb, dim=1, stable=True)
+        parts.append((cbs[:, :C], nsm.gather(1, order[:, :C]), pm.gather(1, order[:, :C])))
+    best = torch.stack([p[0][:, 0] for p in parts]).amin(0)
+    thresh = frame_step.cost_bits(frame_step.bits_cost(best) + 10.0)
+    pool = [torch.cat([torch.where(p[0] <= thresh[:, None], p[0], frame_step.BIG_I32)
+                       if j == 0 else p[j] for p in parts], dim=1).contiguous()
+            for j in range(3)]
+    assert pool[0].shape[1] == viterbi_v3.SHARD_SLACK * K < dec.K * dec.M
+    _same_selection(cuda_device, pool, fr, valid, 10.0, 6.0, dec.S, dec.mbits, dec.K2, dec.R)
+
+
+def _sharded_on_card(mesh, graph, ll):
+    """A rank of the card test below: the sharded v4 decode of ll."""
+    dec = BatchViterbi(graph, DecodeParams(beam=10.0, max_active=1024, lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True, device="cuda")
+    fr, recs, best, bestf = dec.decode_chunk_sharded(mesh, dec.init_frontier(ll.shape[0]),
+                                                     ll.cuda())
+    return ({k: v.cpu() for k, v in fr.items()}, {k: v.cpu() for k, v in recs.items()},
+            best.cpu(), bestf.cpu(), expand_v4.launches, select_v4.launches)
+
+
+def test_sharded_decode_on_card_matches_unsharded(cuda_device, realistic_graph):
+    """decode_chunk_sharded over model = 2, the ranks sharing the card over
+    gloo: best, best-final, the frontier and the winners' record planes
+    equal the unsharded decode's on the card, through the kernels."""
+    from vosk_tpu_torch.parallel.launch import run_group
+
+    gen = torch.Generator().manual_seed(13)
+    ll = torch.randn((4, 12, 64), generator=gen) * 0.3
+    res = run_group(_sharded_on_card, 1, 2, "cuda", "gloo", args=(realistic_graph, ll),
+                    timeout=300)
+    dec = BatchViterbi(realistic_graph, DecodeParams(beam=10.0, max_active=1024,
+                                                     lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True, device=cuda_device)
+    fr, recs, best, bestf = dec.decode_chunk(dec.init_frontier(4), ll.to(cuda_device))
+    for got in res:
+        gfr, grecs, gbest, gbestf, n_expand, n_select = got
+        assert n_expand == n_select == 12
+        assert torch.equal(_bits(gbest), _bits(best.cpu()))
+        assert torch.equal(_bits(gbestf), _bits(bestf.cpu()))
+        for k in fr:
+            assert torch.equal(_bits(gfr[k]), _bits(fr[k].cpu())), k
+        for k in ("pm", "state", "f_cost"):
+            assert torch.equal(_bits(grecs[k]), _bits(recs[k].cpu())), k
 
 
 def _tie_pool(rng, B, K, M, S, levels, step, n_states, pad, states=None):

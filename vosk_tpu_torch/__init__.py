@@ -13,8 +13,10 @@ same method names and JSON results as `vosk_tpu`; `list_models`,
 by default).  Beside the library: the websocket server
 (`python -m vosk_tpu_torch.server.ws`), the transcriber CLI
 (`python -m vosk_tpu_torch.transcriber.cli`) and the C ABI
-(`libvosk_tpu_torch.so`, built by `vosk_tpu_torch.cabi.build`).  Not ported:
-the model-zoo download.  The JAX package stays the reference; this package
+(`libvosk_tpu_torch.so`, built by `vosk_tpu_torch.cabi.build`).  The device
+mesh (`parallel/`: `make_mesh`, `run_group`) runs `FusedPipeline(mesh=...)`
+and the sharded search (`BatchViterbi.decode_chunk_sharded`) with one process
+per rank.  Not ported: the model-zoo download.  The JAX package stays the reference; this package
 imports torch and never jax.
 """
 from __future__ import annotations

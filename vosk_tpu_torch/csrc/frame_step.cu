@@ -61,6 +61,12 @@
 //    candidate;
 //  * expand: a dead token (state S) reads no row and writes (BIG, S, prevm)
 //    directly: row S is all padding (w = +inf, next = S, sil = 0);
+//  * expand over a stripe, for the sharded search (the source's
+//    _frame_step_v4_sharded, :1494-1517): a launch takes the frontier's
+//    slots base, base + stride, ... and reads their state and cost words in
+//    place from the whole [B, K] frontier (strided 4-byte loads, a small
+//    share of the arc-row bytes), so no strided copy of the frontier is
+//    made, and pm carries the global slot;
 //  * select follows what it computes, not the source's sorts.  Per channel,
 //    over the 64-bit order (cost key, e): D, the K2 smallest, is a set;
 //    each next state's winner is its smallest member of D; the winners
@@ -285,13 +291,24 @@ __device__ __forceinline__ void score(int32_t p1, int32_t nsf, int32_t meta, flo
   }
 }
 
+// The tokens a launch expands: token k of channel b is the frontier's slot
+// base + k * stride, read in place at tok_state[b * row + slot] (row: the
+// frontier's row length).  The whole frontier is (row K, base 0, stride 1);
+// a rank of the sharded search takes the stripe (base i, stride n), and
+// pm carries the global slot (source _expand_v4 :884-893).
+struct Stripe {
+  long long row;
+  int base;
+  int stride;
+};
+
 template <int kPlanes, bool kVec4, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict__ tok_state,
                  const float* __restrict__ tok_cost, const float* __restrict__ ll,
-                 long long ll_stride, int n_ll, int pdf_bits, float neg_scale, int K, int S,
-                 int M, int mbits, int32_t* __restrict__ cbits, int32_t* __restrict__ nsm,
-                 int32_t* __restrict__ pm) {
+                 long long ll_stride, int n_ll, int pdf_bits, float neg_scale, int K,
+                 Stripe stripe, int S, int M, int mbits, int32_t* __restrict__ cbits,
+                 int32_t* __restrict__ nsm, int32_t* __restrict__ pm) {
   extern __shared__ __align__(16) float smem_row[];
   __shared__ __align__(8) uint64_t bar;
   const int b = blockIdx.y;
@@ -302,7 +319,8 @@ expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict_
   if (kVec4) {  // M == 4: one thread per token
     const int k = blockIdx.x * kThreads + threadIdx.x;
     const bool in = k < K;
-    const long long tok = static_cast<long long>(b) * K + k;
+    const int slot = stripe.base + k * stripe.stride;  // the token's global slot
+    const long long tok = static_cast<long long>(b) * stripe.row + slot;
     const int s = in ? tok_state[tok] : S;
     float tc = 0.0f;
     int4 p1 = make_int4(0, 0, 0, 0), nx = p1, mt = p1;
@@ -316,7 +334,7 @@ expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict_
     }
     if (kStaged) stage_wait(&bar, n_ll);
     if (!in) return;
-    const int32_t pm0 = k << mbits;
+    const int32_t pm0 = slot << mbits;
     int4 oc, on, op;
     if (s == S) {
       oc = make_int4(kBig, kBig, kBig, kBig);
@@ -341,7 +359,8 @@ expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict_
     const bool in = e < E;
     const int k = in ? e / M : 0;
     const int m = in ? e - k * M : 0;
-    const long long tok = static_cast<long long>(b) * K + k;
+    const int slot = stripe.base + k * stripe.stride;
+    const long long tok = static_cast<long long>(b) * stripe.row + slot;
     const int s = in ? tok_state[tok] : S;
     float tc = 0.0f;
     int32_t p1 = 0, nx = 0, mt = 0;
@@ -354,7 +373,7 @@ expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict_
     }
     if (kStaged) stage_wait(&bar, n_ll);
     if (!in) return;
-    const int32_t prevm = (k << mbits) | m;
+    const int32_t prevm = (slot << mbits) | m;
     int32_t oc = kBig, on = S, op = prevm;
     if (s != S)
       score<kPlanes, kStaged>(p1, nx, mt, tc, row, n_ll, pdf_bits, neg_scale, prevm, S, oc, on,
@@ -1309,7 +1328,8 @@ template <int kPlanes, bool kVec4, bool kStaged>
 cudaError_t launch_expand(dim3 grid, cudaStream_t s, const int32_t* em_pack,
                           const int32_t* tok_state, const float* tok_cost, const float* ll,
                           long long ll_stride, int n_ll, int pdf_bits, float neg_scale, int K,
-                          int S, int M, int mbits, int32_t* cbits, int32_t* nsm, int32_t* pm) {
+                          Stripe stripe, int S, int M, int mbits, int32_t* cbits, int32_t* nsm,
+                          int32_t* pm) {
   const size_t smem = kStaged ? static_cast<size_t>(n_ll) * 4 : 0;
   if (smem > kStaticSmemLimit - kStageReserve) {
     static std::atomic<bool> smem_allowed[kMaxDevices];
@@ -1318,8 +1338,8 @@ cudaError_t launch_expand(dim3 grid, cudaStream_t s, const int32_t* em_pack,
     if (err != cudaSuccess) return err;
   }
   expand_v4_kernel<kPlanes, kVec4, kStaged><<<grid, kThreads, smem, s>>>(
-      em_pack, tok_state, tok_cost, ll, ll_stride, n_ll, pdf_bits, neg_scale, K, S, M, mbits,
-      cbits, nsm, pm);
+      em_pack, tok_state, tok_cost, ll, ll_stride, n_ll, pdf_bits, neg_scale, K, stripe, S, M,
+      mbits, cbits, nsm, pm);
   return cudaGetLastError();
 }
 
@@ -1401,16 +1421,21 @@ int cluster_size(F* fn, int B, bool global, std::atomic<int> (*fit)[kMaxCluster 
 }  // namespace
 
 // planes: 2 for packed16 rows, 3 for exact3 rows (pdf_bits the width of
-// their pdf field, 1..31; unused for packed16).  stage_req: -1 picks as
-// below, 0 asks for the staged row, 1 for reads in place (a row the bulk
-// copy cannot take, or too long for shared memory, is always read in
-// place).
+// their pdf field, 1..31; unused for packed16).  K tokens a channel: slots
+// slot_base + k * slot_stride of a frontier whose rows hold tok_row slots
+// (the whole frontier: K, 0, 1).  stage_req: -1 picks as below, 0 asks for
+// the staged row, 1 for reads in place (a row the bulk copy cannot take,
+// or too long for shared memory, is always read in place).
 extern "C" int vt_expand_v4(const void* em_pack, const void* tok_state, const void* tok_cost,
                             const void* ll, long long ll_stride, int P, float scale, int B,
-                            int K, int S, int M, int mbits, int planes, int pdf_bits,
-                            void* cbits, void* nsm, void* pm, int stage_req, void* stream) {
-  if ((planes != 2 && planes != 3) || (planes == 3 && (pdf_bits < 1 || pdf_bits > 31)))
+                            int K, long long tok_row, int slot_base, int slot_stride, int S,
+                            int M, int mbits, int planes, int pdf_bits, void* cbits, void* nsm,
+                            void* pm, int stage_req, void* stream) {
+  if ((planes != 2 && planes != 3) || (planes == 3 && (pdf_bits < 1 || pdf_bits > 31)) ||
+      slot_base < 0 || slot_stride < 1 ||
+      (K > 0 && slot_base + static_cast<long long>(K - 1) * slot_stride >= tok_row))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Stripe stripe{tok_row, slot_base, slot_stride};
   // the ll words a lookup can reach: pdf ids of packed16 rows are below 2^14
   const int n_ll = planes == 2 && P > kPdfWords ? kPdfWords : P;
   const bool vec4 = M == 4;
@@ -1440,7 +1465,7 @@ extern "C" int vt_expand_v4(const void* em_pack, const void* tok_state, const vo
   const float neg = -scale;
 #define VT_EXPAND(PLANES, VEC4, STAGED)                                                      \
   launch_expand<PLANES, VEC4, STAGED>(grid, s, e, ts, tc, l, ll_stride, n_ll, pdf_bits, neg, K, \
-                                      S, M, mbits, c, n, p)
+                                      stripe, S, M, mbits, c, n, p)
 #define VT_EXPAND_ROWS(PLANES)                                                              \
   (vec4 ? (staged ? VT_EXPAND(PLANES, true, true) : VT_EXPAND(PLANES, true, false))        \
         : (staged ? VT_EXPAND(PLANES, false, true) : VT_EXPAND(PLANES, false, false)))

@@ -15,7 +15,10 @@ differs).  A serving model rounds its weights once at construction; a
 trainable one (`trainable=True`, the trainers' f32 master weights) rounds
 both operands inside each product through `bf16_matmul`, whose backward
 rounds each gradient to bf16 as `jax.grad` of the source's product does.
-Both run the one forward, `tdnnf_forward`.
+Both run the one forward, `tdnnf_forward`.  With `mesh` (parallel/mesh.py)
+a model axis of more than one rank makes it tensor parallel: each rank
+keeps its shard of the parameters (`mesh.am_param_sharding`, the source's
+rule) and the forward runs `TensorParallelOps`.
 """
 from __future__ import annotations
 
@@ -122,27 +125,136 @@ class _Bf16Matmul(torch.autograd.Function):
 bf16_matmul = _Bf16Matmul.apply
 
 
-def tdnnf_forward(cfg: TdnnfConfig, p, feats: torch.Tensor, mm) -> torch.Tensor:
+class _DenseOps:
+    """The forward's layer operations over whole tensors."""
+
+    def __init__(self, p, mm):
+        self.p, self.mm = p, mm
+
+    def input(self, x):
+        return x
+
+    def splice(self, x, offsets):
+        return _splice(x, offsets)
+
+    def affine(self, x, w, b=None):
+        y = self.mm(x, self.p[w])
+        return y if b is None else y + self.p[b]
+
+    def unit(self, x, prefix):
+        return torch.relu(x) * self.p[f"{prefix}_scale"] + self.p[f"{prefix}_offset"]
+
+    def bypass(self, scale, x, y):
+        return scale * x + y
+
+    def output(self, x):
+        return x
+
+
+class _Part:
+    """An activation of the tensor-parallel forward: whole on every rank, or
+    this rank's block of its last axis (`local`); `whole` caches the
+    gathered tensor."""
+
+    __slots__ = ("t", "local", "whole")
+
+    def __init__(self, t, local):
+        self.t, self.local, self.whole = t, local, None if local else t
+
+
+class TensorParallelOps:
+    """The forward's layer operations over parameters sharded across the
+    mesh's `model` axis by `mesh.am_param_sharding` (each rank holds only its
+    shard `p[name]`; `dims[name]` is the sharded axis or None), with the
+    collectives written out where the source leaves them to XLA's
+    partitioner:
+      * a product with a column-sharded weight (the rule's usual case) is
+        taken locally on the whole input and leaves this rank's block of
+        the output columns;
+      * a product with a row-sharded weight takes the matching block of the
+        input's last axis, then a SUM all-reduce;
+      * per-unit vectors (bias, scale, offset) apply to the block they
+        hold, so a layer's output stays a block until something needs it
+        whole: a splice (time indexing over every unit), the next product,
+        or the output, where one all_gather of the last axis assembles it.
+    The bypass adds blocks.  bf16 rounding stays in `mm`: operands rounded,
+    f32 sums.  Explicit collectives rather than DTensor: the splice's time
+    indexing and the rounding stay where the forward puts them, and whether
+    an activation is whole or a block is visible at each step, where DTensor
+    would choose its redistributions by its own rules."""
+
+    def __init__(self, p, dims, mm, mesh):
+        from ..parallel import mesh as pmesh
+
+        self.p, self.dims, self.mm, self.mesh = p, dims, mm, mesh
+        self.n, self.r = pmesh.axis_size(mesh, "model"), mesh.get_local_rank("model")
+        self._gather = lambda t: pmesh.all_gather_cat(mesh, "model", t, -1)
+        self._sum = lambda t: pmesh.all_reduce_sum(mesh, "model", t)
+
+    def _whole(self, v):
+        if v.whole is None:
+            v.whole = self._gather(v.t)
+        return v.whole
+
+    def _block(self, v):
+        return v.t if v.local else v.t.tensor_split(self.n, -1)[self.r]
+
+    def _vec(self, name, v, op):
+        vec, dim = self.p[name], self.dims[name]
+        if dim is None and not v.local:
+            return _Part(op(v.t, vec), False)
+        return _Part(op(self._block(v), vec if dim == 0 else vec.tensor_split(self.n)[self.r]),
+                     True)
+
+    def input(self, x):
+        return _Part(x, False)
+
+    def splice(self, v, offsets):
+        return _Part(_splice(self._whole(v), offsets), False)
+
+    def affine(self, v, w, b=None):
+        W, dim = self.p[w], self.dims[w]
+        if dim == 1:
+            y = _Part(self.mm(self._whole(v), W), True)
+        elif dim == 0:
+            y = _Part(self._sum(self.mm(self._block(v), W)), False)
+        else:
+            y = _Part(self.mm(self._whole(v), W), False)
+        return y if b is None else self._vec(b, y, torch.add)
+
+    def unit(self, v, prefix):
+        y = self._vec(f"{prefix}_scale", _Part(torch.relu(v.t), v.local), torch.mul)
+        return self._vec(f"{prefix}_offset", y, torch.add)
+
+    def bypass(self, scale, x, y):
+        if not (x.local or y.local):
+            return _Part(scale * x.t + y.t, False)
+        return _Part(scale * self._block(x) + self._block(y), True)
+
+    def output(self, v):
+        return self._whole(v)
+
+
+def tdnnf_forward(cfg: TdnnfConfig, p, feats: torch.Tensor, mm, ops=None) -> torch.Tensor:
     """The TDNN-F forward over parameters `p` (a name -> tensor mapping):
     feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs], every
-    product through `mm(x, w)`."""
-    x = _splice(feats, (-1, 0, 1))
-    x = mm(x, p["tdnn1_w"]) + p["tdnn1_b"]
-    x = torch.relu(x) * p["tdnn1_scale"] + p["tdnn1_offset"]
+    product through `mm(x, w)`.  ops: the layer operations, whole tensors
+    by default (`TensorParallelOps` for a model sharded over a mesh)."""
+    o = ops or _DenseOps(p, mm)
+    x = o.affine(o.splice(o.input(feats), (-1, 0, 1)), "tdnn1_w", "tdnn1_b")
+    x = o.unit(x, "tdnn1")
 
     for i, s in enumerate(cfg.time_strides):
-        y = x if s == 0 else _splice(x, (-s, 0))
-        b = mm(y, p[f"tdnnf{i}_lin"])
-        y2 = b if s == 0 else _splice(b, (0, s))
-        y2 = mm(y2, p[f"tdnnf{i}_aff_w"]) + p[f"tdnnf{i}_aff_b"]
-        y2 = torch.relu(y2) * p[f"tdnnf{i}_scale"] + p[f"tdnnf{i}_offset"]
-        x = cfg.bypass_scale * x + y2
+        y = x if s == 0 else o.splice(x, (-s, 0))
+        b = o.affine(y, f"tdnnf{i}_lin")
+        y2 = b if s == 0 else o.splice(b, (0, s))
+        y2 = o.unit(o.affine(y2, f"tdnnf{i}_aff_w", f"tdnnf{i}_aff_b"), f"tdnnf{i}")
+        x = o.bypass(cfg.bypass_scale, x, y2)
 
-    x = mm(x, p["prefinal_l"])
-    x = mm(x, p["prefinal_w"]) + p["prefinal_b"]
-    x = torch.relu(x) * p["prefinal_scale"] + p["prefinal_offset"]
-    x = mm(x, p["prefinal_l2"])
-    out = mm(x, p["output_w"]) + p["output_b"]
+    x = o.affine(x, "prefinal_l")
+    x = o.unit(o.affine(x, "prefinal_w", "prefinal_b"), "prefinal")
+    x = o.affine(x, "prefinal_l2")
+    out = o.output(o.affine(x, "output_w", "output_b"))
     # chain output: raw pseudo-loglikes, no log-softmax (run_tdnn.sh:120)
     return out[:, :: cfg.subsample]
 
@@ -152,7 +264,8 @@ class TdnnfModel(nn.Module, StreamingAm):
     pre-rounded for serving, or f32 master weights with gradients when
     `trainable`; streaming state = carried feature context (StreamingAm)."""
 
-    def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda", trainable=False):
+    def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda", trainable=False,
+                 mesh=None):
         super().__init__()
         if cfg.ivector_dim:
             raise NotImplementedError(
@@ -162,6 +275,19 @@ class TdnnfModel(nn.Module, StreamingAm):
         self.cfg = cfg
         self.bf16 = cfg.compute_dtype == "bfloat16"
         self.trainable = trainable
+        # tensor parallel over the mesh's model axis: each rank keeps only
+        # its shard of every parameter the rule shards (parallel/mesh.py)
+        from ..parallel import mesh as pmesh
+
+        self.mesh = mesh if mesh is not None and pmesh.axis_size(mesh, "model") > 1 else None
+        self.shard_dims = {}
+        if self.mesh is not None:
+            if trainable:
+                raise ValueError("a tensor-parallel TDNN-F serves; it does not train")
+            params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+            self.shard_dims = {k: pmesh.am_param_sharding(self.mesh, k, v.shape)
+                               for k, v in params.items()}
+            params = pmesh.shard_am_params(self.mesh, params)
         tensors = {}
         for k, v in params.items():
             t = torch.tensor(np.asarray(v, np.float32))
@@ -184,7 +310,9 @@ class TdnnfModel(nn.Module, StreamingAm):
     def forward(self, feats: torch.Tensor, ivector=None) -> torch.Tensor:
         """feats [B, T, feat_dim] -> pseudo-loglikes [B, ceil(T/ss), pdfs]
         (`ivector` is always None: the model has no i-vector input)."""
-        return tdnnf_forward(self.cfg, self.params, feats, self._mm)
+        ops = None if self.mesh is None else TensorParallelOps(
+            self.params, self.shard_dims, self._mm, self.mesh)
+        return tdnnf_forward(self.cfg, self.params, feats, self._mm, ops)
 
     @property
     def feat_dim(self) -> int:

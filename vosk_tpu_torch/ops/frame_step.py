@@ -16,7 +16,10 @@ Per frame the decoder (ops/viterbi.py) runs
 Together they replace the JAX package's Pallas kernel `_pallas_gather`
 (vosk_tpu/ops/gather.py:33) at its two v4 call sites (:879 and :1105), and
 the sorts and element-wise ops that made its indices and consumed its
-output.
+output.  The sharded v4 step (`_frame_step_v4_sharded`, :1494) reaches the
+same sites: `expand_v4` takes a stripe of the frontier (`slot_base`,
+`slot_stride`, read in place), and `select_v4` the merged pool of every
+rank's best candidates, which is not K*M wide.
 
 Each wrapper launches its hand-written Hopper kernel (csrc/frame_step.cu,
 built with the other csrc/ sources into one library by ops/_kernels.py) on
@@ -91,15 +94,29 @@ def sub_scaled(t: torch.Tensor, scale: float, ac: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- expand
 
 
+def stripe_len(K: int, slot_base: int, slot_stride: int) -> int:
+    """Tokens in the stripe slot_base, slot_base + slot_stride, ... of K slots."""
+    if slot_base < 0 or slot_stride < 1:
+        raise ValueError(f"stripe needs slot_base >= 0 and slot_stride >= 1; got "
+                         f"{slot_base}, {slot_stride}")
+    return max(0, -(-(K - slot_base) // slot_stride))
+
+
 def expand_v4_plain(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits,
-                    pdf_bits=None):
-    """Tokens -> scored candidates (cbits, nsm, pm), each [B, K*M] int32.
+                    pdf_bits=None, slot_base=0, slot_stride=1):
+    """Tokens -> scored candidates (cbits, nsm, pm), each [B, Kn*M] int32.
 
     em_pack: with pdf_bits None, [S+1, 2M] int32 packed16 rows (f16(w) << 16
     | sil << 14 | pdf, then next state); else [S+1, 3M] exact3 rows (f32
     weight bits, next state, meta = sil << pdf_bits | pdf; higher meta bits
-    are ignored).  tok_state, tok_cost [B, K]; ll [B, P] f32, any strides; a
-    pdf >= P scores ac = 0.  Candidate e = k*M + m."""
+    are ignored).  tok_state, tok_cost [B, K]: the frontier, whose stripe of
+    slots slot_base + j * slot_stride (Kn of them, `stripe_len`) is expanded;
+    the whole frontier by default.  ll [B, P] f32, any strides; a pdf >= P
+    scores ac = 0.  Candidate e = j*M + m carries the global slot in pm
+    (source `_expand_v4`, :865-893)."""
+    stripe_len(tok_state.shape[1], slot_base, slot_stride)
+    tok_state = tok_state[:, slot_base::slot_stride]
+    tok_cost = tok_cost[:, slot_base::slot_stride]
     B, K = tok_state.shape
     E = K * M
     rows = em_pack[tok_state.long()]  # [B, K, 2M or 3M]
@@ -124,7 +141,7 @@ def expand_v4_plain(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbit
     cbits = torch.where(finite, cost_bits(cost), BIG_I32)
     nsm = torch.where(finite, nsf & NS_MASK, S)
     e = torch.arange(E, dtype=torch.int32, device=p1.device)
-    prevm = ((e // M) << mbits) | (e % M)
+    prevm = (((e // M) * slot_stride + slot_base) << mbits) | (e % M)
     pm = prevm[None, :] + (sil << 30)
     return cbits, nsm, pm
 
@@ -153,8 +170,8 @@ def _device_of(*xs) -> torch.device:
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "vt_expand_v4": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                     _P],
+    "vt_expand_v4": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _LL, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _P, _I, _P],
     "vt_select_v4": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, _F, _F, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
@@ -175,25 +192,27 @@ EXPAND_STAGES = {"bulk": 0, "in_place": 1}
 
 
 def expand_v4(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits, pdf_bits=None,
-              stage=None):
+              stage=None, slot_base=0, slot_stride=1):
     """`expand_v4_plain` as one kernel launch on CUDA tensors (the plain
     version on CPU tensors), over packed16 rows (pdf_bits None) or exact3
-    rows.  ll may be a row-strided view ([B, T, P] chunk at frame t).
-    stage: None lets the kernel choose how it reads the ll row; a key of
-    EXPAND_STAGES forces one (for measurement; a row longer than shared
-    memory holds is read in place all the same).  `expand_v4.launches`
-    counts kernel launches."""
+    rows.  ll may be a row-strided view ([B, T, P] chunk at frame t).  The
+    kernel reads the stripe slot_base, slot_base + slot_stride, ... in place
+    from the whole frontier (no strided copy).  stage: None lets the kernel
+    choose how it reads the ll row; a key of EXPAND_STAGES forces one (for
+    measurement; a row longer than shared memory holds is read in place all
+    the same).  `expand_v4.launches` counts kernel launches."""
     _check_2d("tok_state", tok_state, torch.int32)
-    B, K = tok_state.shape
+    B, row = tok_state.shape
+    K = stripe_len(row, slot_base, slot_stride)
     if pdf_bits is not None and not 1 <= pdf_bits <= 31:
         raise ValueError(f"exact3 rows need pdf_bits in 1..31; got {pdf_bits}")
     _check_2d("em_pack", em_pack, torch.int32, cols=(2 if pdf_bits is None else 3) * M)
-    _check_2d("tok_cost", tok_cost, torch.float32, B, K)
+    _check_2d("tok_cost", tok_cost, torch.float32, B, row)
     _check_2d("ll", ll, torch.float32, B)
     dev = _device_of(em_pack, tok_state, tok_cost, ll)
     if dev.type == "cpu":
         return expand_v4_plain(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits,
-                               pdf_bits)
+                               pdf_bits, slot_base, slot_stride)
     if not (em_pack.is_contiguous() and tok_state.is_contiguous() and tok_cost.is_contiguous()):
         raise ValueError("expand_v4 needs contiguous em_pack, tok_state and tok_cost")
     if em_pack.shape[0] != S + 1 or B > 65535 or K * M >= 2**31:
@@ -206,8 +225,9 @@ def expand_v4(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits, pdf
     with torch.cuda.device(dev):
         err = _kernel("vt_expand_v4")(
             em_pack.data_ptr(), tok_state.data_ptr(), tok_cost.data_ptr(), ll.data_ptr(),
-            ll.stride(0), ll.shape[1], float(acoustic_scale), B, K, S, M, mbits,
-            2 if pdf_bits is None else 3, pdf_bits or 0, *(o.data_ptr() for o in out),
+            ll.stride(0), ll.shape[1], float(acoustic_scale), B, K, row, slot_base,
+            slot_stride, S, M, mbits, 2 if pdf_bits is None else 3, pdf_bits or 0,
+            *(o.data_ptr() for o in out),
             -1 if stage is None else EXPAND_STAGES[stage],
             stream)
     _launched("expand_v4", err)

@@ -8,9 +8,11 @@ CUDA source for what bounds it and what its design does about that).
 wrapper uses it for CPU tensors, and tests compare the kernel with it.  The
 decoder's v3 frame step (ops/viterbi_v3.py) calls it at the source's four
 v3 sites: ll[b, pdf], tsil[b, prev], and per eps round state[b, src] and
-tsil[b, prev], 2 + 2 * eps_iters launches a decoded frame.  The v4 step
-does not: its two lookups live inside the frame-step kernels
-(ops/frame_step.py).  The sharded site (ROADMAP A13) is not ported.
+tsil[b, prev], 2 + 2 * eps_iters launches a decoded frame, and so does its
+sharded mode (`decode_chunk_sharded`, the source's :669 and :716 under
+`_frame_step_sharded`).  The v4 step does not: its two lookups live inside
+the frame-step kernels (ops/frame_step.py), the sharded v4 step's ll lookup
+in `expand_v4` over a stripe of the frontier.
 """
 from __future__ import annotations
 

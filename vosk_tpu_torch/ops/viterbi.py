@@ -43,6 +43,13 @@ through `gather_op`, the `gather_rows` kernel (`gather_rows_plain` to
 compare on the same tensors).  Where a state has more than 32 eps arcs
 its eps rounds are the CSR step's, as in the source.
 
+The sharded search (`decode_chunk_sharded`, the source's sharded mode):
+each rank of a mesh's `model` axis (parallel/mesh.py) expands a stripe of
+the frontier (`expand_v4` over slots i, i + n, ..., or the v3 expansion),
+a MIN all-reduce syncs each channel's beam threshold, and an all_gather
+merges every rank's best candidates (`viterbi_v3.shard_candidates`) into
+the pool that the step's selection takes; the v4 and padded v3 steps.
+
 CSR (ops/viterbi_csr.py), the source's decoder for graphs above out-degree
 16: the tokens' arcs expanded from the CSR tables within a budget E (Ee
 for eps rounds), one stable sort for the dedup, the v3 step's records
@@ -375,6 +382,18 @@ class BatchViterbi:
         c._select_scratch = SelectScratch()
         return c
 
+    def __getstate__(self):
+        """Pickled (torch.save) without its lock and kernel scratch, so that
+        the ranks of a mesh can load one prepared decoder."""
+        st = dict(self.__dict__)
+        del st["_dispatch_lock"], st["_select_scratch"]
+        return st
+
+    def __setstate__(self, st):
+        self.__dict__.update(st)
+        self._dispatch_lock = threading.RLock()
+        self._select_scratch = SelectScratch()
+
     def init_frontier(self, batch: int) -> dict:
         dev = self.device
         return {
@@ -386,17 +405,30 @@ class BatchViterbi:
 
     # ------------------------------------------------------------- v4 step
 
-    def _frame_step_v4(self, frontier, ll, valid, out):
+    def _frame_step_v4(self, frontier, ll, valid, out, mesh=None):
         """One whole-batch frame step: expand, then select.  ll: [B, P]
         (rows may be strided); valid: [B] bool.  Returns (frontier, records
         {pm, state, f_cost} [B, K] and {lat_pm, lat_cost} [B, R]), the
-        records written into `out` ({name: [B, K|R]})."""
-        cbits, nsm, pm = self.step_ops.expand(
+        records written into `out` ({name: [B, K|R]}).
+
+        mesh: None, or the mesh of the sharded search (source
+        `_frame_step_v4_sharded`, :1494-1532): this rank expands its stripe
+        of the frontier (global slots i, i + n, ... for coordinate i of n on
+        `viterbi_v3.SHARD_AXIS`), and `viterbi_v3.shard_candidates` merges the
+        ranks' best candidates within the synced beam into the pool that
+        select_v4 takes.  select_v4 breaks ties by pool position, as a
+        stable sort does, and the merged pool's segments are each cost
+        sorted in rank order, so the source's sort of the merged pool
+        (:1531) is left out: it would not move a tie."""
+        i, n = (0, 1) if mesh is None else viterbi_v3.shard_coordinate(mesh)
+        cands = self.step_ops.expand(
             self.em_pack, frontier["state"], frontier["cost"], ll,
             self.params.acoustic_scale, self.S, self.M, self.mbits, self.pdf_bits
-            if self.pack == "exact3" else None)
+            if self.pack == "exact3" else None, slot_base=i, slot_stride=n)
+        if mesh is not None:
+            cands = viterbi_v3.shard_candidates(self, mesh, cands[0], cands[1:], self.K // n)
         return self.step_ops.select(
-            cbits, nsm, pm, frontier, valid, self.params.beam, self.params.lattice_beam,
+            *cands, frontier, valid, self.params.beam, self.params.lattice_beam,
             self.S, self.mbits, self.K2, self.R, out, scratch=self._select_scratch)
 
     # ------------------------------------------------------------- chunk API
@@ -431,6 +463,39 @@ class BatchViterbi:
         [B, T, L, K or R]} (v3 and CSR).  out: optional preallocated records
         (`record_buffers(record_lead(T, B))` or views of a larger buffer) to
         write into instead of allocating."""
+        return self._decode(frontier, loglikes, valid, out)
+
+    def decode_chunk_sharded(self, mesh, frontier, loglikes, valid=None, out=None):
+        """`decode_chunk` with each frame's expansion sharded over the
+        `model` axis of `mesh` (parallel/mesh.py; source
+        `decode_chunk_sharded` :1534, at its defaults axis="model" and
+        shard_slack=2, `viterbi_v3.SHARD_AXIS` and `SHARD_SLACK`): run
+        by every rank of the mesh, each on the channels of its data
+        coordinate (frontier [B / n_data, K], loglikes [B / n_data, T, P]).
+        A rank expands its stripe of K / n frontier slots, the ranks of the
+        model axis agree on each channel's best candidate (a MIN all-reduce)
+        and so on the beam threshold, and each contributes its
+        min(K / n * M, 2 * K / n) best candidates within it to an
+        all_gather; every rank then selects from the merged pool, so the
+        ranks of the model axis return the same frontier.  Identical to
+        decode_chunk up to the order of equal-cost ties whenever no rank has
+        more than its contribution inside the beam.  Returns what
+        decode_chunk returns, records in the same layouts (v4 [T, B, K|R],
+        where the source swaps them to [B, T, K|R] and its v4 traceback then
+        reads the wrong rows; ROADMAP C).  The padded layout only: the
+        source's sharded step reads the padded arc rows, which the CSR
+        layout has not."""
+        _, n = viterbi_v3.shard_coordinate(mesh)
+        if self.K % n:
+            raise ValueError(f"sharded mode needs max_active % n_shards == 0; got K = "
+                             f"{self.K} over {n} shards")
+        if self.layout != "padded":
+            raise NotImplementedError(
+                "the sharded search runs the padded layout's steps (v4 and v3); the "
+                "source's sharded step reads padded arc rows, which layout='csr' has not")
+        return self._decode(frontier, loglikes, valid, out, mesh)
+
+    def _decode(self, frontier, loglikes, valid, out, mesh=None):
         B, T, _ = loglikes.shape
         dev = loglikes.device
         if valid is None:
@@ -442,13 +507,14 @@ class BatchViterbi:
                 for t in range(T):
                     # frame t of the chunk read in place; records written at t
                     frontier, _ = self._frame_step_v4(
-                        frontier, ll32[:, t], valid[:, t], {k: v[t] for k, v in recs.items()})
+                        frontier, ll32[:, t], valid[:, t], {k: v[t] for k, v in recs.items()},
+                        mesh)
             else:
                 # the v3 and CSR lookups read contiguous ll rows: one copy a
                 # chunk
                 ll_t = ll32.transpose(0, 1).contiguous()
-                step = viterbi_v3.frame_step_v3 if self.layout == "padded" \
-                    else viterbi_csr.frame_step
+                step = viterbi_csr.frame_step if self.layout == "csr" else (
+                    lambda *a: viterbi_v3.frame_step_v3(*a, mesh=mesh))
                 for t in range(T):
                     frontier = step(self, frontier, ll_t[t], valid[:, t],
                                     {k: v[:, t] for k, v in recs.items()})

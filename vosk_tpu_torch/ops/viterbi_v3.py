@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..graph.lattice import to_host
+from ..parallel import mesh as pmesh
 from . import viterbi_csr
 from .viterbi_csr import fit, write_levels
 from .frame_step import BIG_I32, INF, NS_MASK, SPEECH_BIT, TSIL_MASK, bits_cost, cost_bits, sub_scaled
@@ -50,6 +51,11 @@ K_PLANES = {"prev": torch.int32, "olabel": torch.int32, "pdf": torch.int32,
             "f_state": torch.int32, "f_cost": torch.float32}
 R_PLANES = {"lat_ns": torch.int32, "lat_prev": torch.int32, "lat_arc": torch.int32,
             "lat_cost": torch.float32}
+# the sharded search (v4 and v3 steps): the mesh axis its expansion is
+# sharded over, and each rank's contribution to the merged pool in frontier
+# slots of its stripe (the source's defaults, which no caller changes)
+SHARD_AXIS = "model"
+SHARD_SLACK = 2
 
 
 def select_v3(dec, cbits, nsf, pays):
@@ -80,12 +86,16 @@ def select_v3(dec, cbits, nsf, pays):
     return sC[0], sC[1], sC[2:], lat
 
 
-def expand_candidates(dec, tok_state, tok_cost, ll):
+def expand_candidates(dec, tok_state, tok_cost, ll, slot_base=0, slot_stride=1):
     """Tokens -> scored candidates (cbits, nsm, prevm, metam, olab or None),
-    each [B, K*M] (source `_expand_candidates`).  ll [B, P] contiguous.  The
+    each [B, Kn*M] (source `_expand_candidates`, :641-682), from the stripe
+    of frontier slots slot_base + j * slot_stride (the whole frontier by
+    default; prevm carries the global slot).  ll [B, P] contiguous.  The
     cost (tok + w) - scale * ac is rounded once, as XLA's fused
     multiply-add rounds it."""
     M, S = dec.M, dec.S
+    tok_state = tok_state[:, slot_base::slot_stride]
+    tok_cost = tok_cost[:, slot_base::slot_stride]
     B, K = tok_state.shape
     E = K * M
     rows = dec.em_pack[tok_state.long()]  # [B, K, 3M or 4M]
@@ -100,7 +110,7 @@ def expand_candidates(dec, tok_state, tok_cost, ll):
     cost = sub_scaled(tok_cost.repeat_interleave(M, dim=1) + w, dec.params.acoustic_scale, ac)
     mask = torch.isfinite(w)
     e = torch.arange(E, dtype=torch.int32, device=rows.device)
-    prevm = (((e // M) << dec.mbits) | (e % M))[None, :].expand(B, E)
+    prevm = ((((e // M) * slot_stride + slot_base) << dec.mbits) | (e % M))[None, :].expand(B, E)
     olab = None if dec.ol_in_meta else torch.where(mask, plane(3), 0)
     return (torch.where(mask, cost_bits(cost), BIG_I32), torch.where(mask, nsf, S), prevm,
             torch.where(mask, meta, 0), olab)
@@ -176,14 +186,64 @@ def eps_level(dec, cur_state, cur_cost, cur_tsil, eflag):
     return (st2, c2, ts2, eflag2), rec
 
 
-def frame_step_v3(dec, frontier, ll, valid, out):
+def shard_coordinate(mesh) -> tuple[int, int]:
+    """(i, n): this rank's coordinate on SHARD_AXIS and the axis' size; the
+    rank expands frontier slots i, i + n, ...."""
+    return mesh.get_local_rank(SHARD_AXIS), pmesh.axis_size(mesh, SHARD_AXIS)
+
+
+def shard_candidates(dec, mesh, cbits, pays, Kn):
+    """A rank's share of the sharded search's candidate pool, merged over
+    the mesh's SHARD_AXIS (source `_frame_step_sharded` :1459-1491 and
+    `_frame_step_v4_sharded` :1519-1530): the beam threshold from the
+    channel's best candidate over every rank (a MIN all-reduce of the
+    order-preserving keys), then this rank's C = min(E, SHARD_SLACK * Kn)
+    cheapest candidates (a stable sort), keyed BIG past the threshold, and
+    every rank's C gathered in rank order.  cbits, each of pays: [B, E]
+    int32 from this rank's stripe of Kn tokens.  Returns (cbits, *pays),
+    each [B, n * C].
+
+    The source masks before its sort; masking the sorted prefix keeps the
+    same keys in the same order (the masked ones sort last either way), and
+    the payload of a BIG key is never read.  The best key is the first of
+    the sorted row, so no separate minimum is taken."""
+    C = min(cbits.shape[1], SHARD_SLACK * Kn)
+    cb, order = torch.sort(cbits, dim=1, stable=True)
+    cb, order = cb[:, :C], order[:, :C]
+    best = pmesh.all_reduce_min(mesh, SHARD_AXIS, cb[:, 0].contiguous())
+    thresh = cost_bits(bits_cost(best) + dec.params.beam)
+    planes = torch.stack([torch.where(cb <= thresh[:, None], cb, BIG_I32),
+                          *(torch.gather(p, 1, order) for p in pays)])
+    return pmesh.all_gather_cat(mesh, SHARD_AXIS, planes, dim=2).unbind(0)
+
+
+def frame_step_v3(dec, frontier, ll, valid, out, mesh=None):
     """One whole-batch v3 frame: expand, select, the eps rounds, identity
     rows for masked channels.  ll [B, P] contiguous; valid [B] bool; out:
     {name: [B, L, K|R]} record views written in place.  Returns the new
-    frontier (freshly allocated)."""
+    frontier (freshly allocated).  mesh: None, or the mesh of the sharded
+    search (source `_frame_step_sharded`, :1441-1492): this rank expands its
+    stripe of the frontier and finishes the merged pool of
+    `shard_candidates`, unsorted, as the source does."""
+    if mesh is None:
+        cands = expand_candidates(dec, frontier["state"], frontier["cost"], ll)
+    else:
+        i, n = shard_coordinate(mesh)
+        cbits, *pays, olab = expand_candidates(dec, frontier["state"], frontier["cost"], ll,
+                                               i, n)
+        pool = shard_candidates(dec, mesh, cbits, pays + [olab] * (olab is not None),
+                                dec.K // n)
+        cands = (*pool, None) if olab is None else tuple(pool)
+    return finish_from_candidates(dec, frontier, cands, valid, out)
+
+
+def finish_from_candidates(dec, frontier, cands, valid, out):
+    """Selection, records and eps rounds from a scored candidate pool
+    (cbits, nsm, prevm, metam, olab or None), each [B, N] (source
+    `_finish_from_candidates`, :684-819).  Returns the new frontier."""
     mbits, pb = dec.mbits, dec.pdf_bits
-    tok_state, tok_cost, tok_tsil = frontier["state"], frontier["cost"], frontier["tsil"]
-    cbits, nsm, prevm, metam, olab = expand_candidates(dec, tok_state, tok_cost, ll)
+    tok_tsil = frontier["tsil"]
+    cbits, nsm, prevm, metam, olab = cands
     kbits, nsf_k, pays_k, lat = select_v3(
         dec, cbits, nsm, (prevm, metam) + (() if olab is None else (olab,)))
     keep, new_state, new_cost, eflag = _prune(dec, kbits, nsf_k)

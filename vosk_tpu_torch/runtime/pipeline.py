@@ -12,15 +12,26 @@ eps-free, else v3; "v4" raises if it is not), "v3" decodes the raw graph
 with a decoder of its own (padded rows, or the CSR step where they would
 pass PADDED_MAX_SLOTS).  Lattice records are always on.
 
-Not ported: the device mesh (ROADMAP A13), and, by decision, `run_adaptive`
-and the ragged unroll (ROADMAP A, "Not ported").  No CUDA graph is captured
-yet (ROADMAP B4).
+With `mesh` (parallel/mesh.py, one process per rank; source :71-100), a
+rank runs the channels of its data coordinate: B must divide by the mesh's
+data size, `init_state` holds B / n_data channels, and `step` and
+`run_scan` take the global audio ([B, chunk] and [n_chunks, B, chunk]) and
+return the rank's channels (`mesh.gather_channels` assembles the global
+result).  Over a model axis of more than one rank the TDNN-F runs tensor
+parallel, each rank holding its shard of the parameters
+(`mesh.am_param_sharding`; models/tdnnf.py `TensorParallelOps`).  Decoder
+tables are each rank's own copy, and decoding stays channel-local through
+`decode_chunk`, as in the source.
+
+Not ported, by decision: `run_adaptive` and the ragged unroll (ROADMAP A,
+"Not ported").  No CUDA graph is captured yet (ROADMAP B4).
 """
 from __future__ import annotations
 
 import torch
 
 from ..io.native import NativeModel
+from ..parallel import mesh as pmesh
 
 
 class FusedPipeline:
@@ -31,14 +42,29 @@ class FusedPipeline:
         chunk_seconds: float = 0.2,
         collect_records: bool = True,
         frame_step: str = "auto",
+        mesh=None,
     ):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
         self.device = model.device
         self.B = batch
+        self.mesh = mesh
+        # the rank's channels of the global batch (all of it without a mesh)
+        self.channels = slice(0, batch) if mesh is None else pmesh.channel_slice(mesh, batch)
+        self.local_B = self.channels.stop - self.channels.start
         self.ex = model.feature_extractor()
-        self.am = model.make_batch_am()
+        if mesh is not None and pmesh.axis_size(mesh, "model") > 1:
+            if model.am_override is not None:
+                raise NotImplementedError(
+                    "a tensor-parallel AM over the mesh's model axis is the native TDNN-F's; "
+                    "an nnet3 network's components do not compute through one product "
+                    "hook (ROADMAP A19)")
+            from ..models.tdnnf import TdnnfModel
+
+            self.am = TdnnfModel(model.am_config, model.am_params, device=self.device, mesh=mesh)
+        else:
+            self.am = model.make_batch_am()
         if frame_step == "v3":
             self.dec = model.make_decoder(optimize_graph=False, frame_step="v3")
         else:
@@ -54,14 +80,21 @@ class FusedPipeline:
         self.collect_records = collect_records
 
     def init_state(self) -> dict:
+        """The streaming state of the rank's channels (every channel without
+        a mesh)."""
+        B = self.local_B
         return {
-            "feat": self.ex.init_stream_state(self.B, self.chunk_samples),
-            "am": self.am.init_stream_state(self.B, self.F),
-            "frontier": self.dec.init_frontier(self.B),
+            "feat": self.ex.init_stream_state(B, self.chunk_samples),
+            "am": self.am.init_stream_state(B, self.F),
+            "frontier": self.dec.init_frontier(B),
         }
 
-    def _as_device(self, x, dtype):
-        return torch.as_tensor(x, dtype=dtype).to(self.device)
+    def _as_device(self, x, dtype, channel_dim=None):
+        """x on the device; with channel_dim, only the rank's channels."""
+        x = torch.as_tensor(x, dtype=dtype)
+        if channel_dim is not None and self.mesh is not None:
+            x = x[(slice(None),) * channel_dim + (self.channels,)]
+        return x.to(self.device)
 
     def _step_impl(self, state, audio, n_samples, ll_bias=None, out=None):
         feat_state, feats, fvalid = self.ex.extract_chunk(
@@ -79,37 +112,37 @@ class FusedPipeline:
         return new_state, recs, best, bestf, lvalid.sum(dim=1)
 
     def step(self, state, audio, n_samples=None):
-        """audio: [B, chunk_samples].  Returns (state, records|None, best,
-        best_final, frames_decoded [B]), all on the device."""
-        audio = self._as_device(audio, torch.float32)
+        """audio: [B, chunk_samples], every channel.  Returns (state,
+        records|None, best, best_final, frames_decoded [B]) of the rank's
+        channels, all on the device."""
         if n_samples is None:
-            n_samples = torch.full((self.B,), audio.shape[1], dtype=torch.int32,
-                                   device=self.device)
+            n_samples = torch.full(audio.shape[:1], audio.shape[1], dtype=torch.int32)
+        audio = self._as_device(audio, torch.float32, 0)
         state, recs, best, bestf, frames = self._step_impl(
-            state, audio, self._as_device(n_samples, torch.int32))
+            state, audio, self._as_device(n_samples, torch.int32, 0))
         return state, recs if self.collect_records else None, best, bestf, frames
 
     def run_scan(self, state, audio, n_samples=None, ll_bias=None):
         """Advance many chunks back to back.
 
-        audio: [n_chunks, B, chunk_samples] pre-staged chunks.  ll_bias:
-        optional [n_chunks, B, T, P] acoustic bias (see `_step_impl`).
-        Returns (state, records {name: [n_chunks, T, B, K|R]} (v4) or {name:
-        [n_chunks, B, T, L, K|R]} (v3), or None when collect_records is off;
-        best [n_chunks, B])."""
-        audio = self._as_device(audio, torch.float32)
-        n_chunks = audio.shape[0]
+        audio: [n_chunks, B, chunk_samples] pre-staged chunks of every
+        channel.  ll_bias: optional [n_chunks, B, T, P] acoustic bias (see
+        `_step_impl`).  Returns, for the rank's channels (every channel
+        without a mesh; Bl of them), (state, records {name: [n_chunks, T,
+        Bl, K|R]} (v4) or {name: [n_chunks, Bl, T, L, K|R]} (v3), or None
+        when collect_records is off; best [n_chunks, Bl])."""
         if n_samples is None:
-            n_samples = torch.full(audio.shape[:2], audio.shape[2],
-                                   dtype=torch.int32, device=self.device)
-        n_samples = self._as_device(n_samples, torch.int32)
+            n_samples = torch.full(audio.shape[:2], audio.shape[2], dtype=torch.int32)
+        audio = self._as_device(audio, torch.float32, 1)
+        n_chunks = audio.shape[0]
+        n_samples = self._as_device(n_samples, torch.int32, 1)
         if ll_bias is not None:
-            ll_bias = self._as_device(ll_bias, torch.float32)
+            ll_bias = self._as_device(ll_bias, torch.float32, 1)
+        B = self.local_B
         # one chunk's worth of scratch when records are not kept
         recs = self.dec.record_buffers(
-            (n_chunks if self.collect_records else 1, *self.dec.record_lead(self.T, self.B)))
-        best = torch.empty((n_chunks, self.B), dtype=torch.float32,
-                           device=self.device)
+            (n_chunks if self.collect_records else 1, *self.dec.record_lead(self.T, B)))
+        best = torch.empty((n_chunks, B), dtype=torch.float32, device=self.device)
         for i in range(n_chunks):
             j = i if self.collect_records else 0
             state, _, best[i], _, _ = self._step_impl(

@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only | --csr-only
-                           | --mesh-only]
+                           | --mesh-only | --adaptive-only]
 
 (`--rescoring-only` / `--pitch-only` / `--training-only` / `--csr-only` /
-`--mesh-only` build the kernels and run phase 12 / 13 / 15 / 16 / 17 alone,
-with no result line; `--csr-only` builds phase 4's model and phase 10's
-directory first, `--mesh-only` phase 4's model and phase 11's v3 decoder.)  Phases, each of which raises on failure
+`--mesh-only` / `--adaptive-only` build the kernels and run phase 12 / 13 /
+15 / 16 / 17 / 18 alone, with no result line; `--csr-only` builds phase 4's
+model and phase 10's directory first, `--mesh-only` phase 4's model and
+phase 11's v3 decoder, `--adaptive-only` phase 4's model; `--mesh-only`
+leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which raises on failure
 (the script then exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
@@ -71,7 +73,8 @@ directory first, `--mesh-only` phase 4's model and phase 11's v3 decoder.)  Phas
      silence weighting must run, the frontier, records, AM history and
      i-vector state must live on the card, and the stream run again with
      the plain versions must give identical JSON; then the same directory
-     without the graft serves 8 x 3 s through BatchModel(max_batch_size=32);
+     without the graft serves 8 x 3 s through BatchModel(max_batch_size=32)
+     and runs 17e's nnet3 mesh;
  10. a split-graph directory (HCLr.fst + Gr.fst, export_kaldi_split_dir) from
      the same AM with a seeded 1,000-word lexicon (2-5 phones each over the
      6008 phones) and a word-loop Gr from graph/lm.py: the gather kernel at
@@ -222,8 +225,34 @@ directory first, `--mesh-only` phase 4's model and phase 11's v3 decoder.)  Phas
      best costs within TP_BEST_ATOL of the unsharded pipeline, and three
      planted faults of the tensor-parallel forward (TP_FAULTS) reading
      above those ll bounds; ms a
-     decoded frame beside phase 8's.  Phase 17 lines carry the card's name
-     and power limit.
+     decoded frame beside phase 8's; (e) FusedPipeline(mesh=(2,
+     1)).run_adaptive at phase 8's point, seg 1, the AM silent (its output
+     matrix zeroed) and the two data halves on phase 8's and snr 32's
+     scores, so that each half alone would take other rungs: every rank
+     takes the unsharded run's rungs (the global batch's live count), best
+     and frontier bit-equal; and, in phase 9 on its directory without
+     the graft, FusedPipeline(mesh=(1, 2)) with the nnet3 AM, which each
+     rank runs whole: best, frontier and records bit-equal to the
+     unsharded pipeline's.  Phase 17 lines carry the card's name and power
+     limit.
+ 18. (run after 8, on phase 4's model) the adaptive max-active ladder,
+     FusedPipeline.run_adaptive (rungs 1024 / 2048 / 4096 / 7000, seg 4,
+     headroom 0.75; rung decoders from clone_with_max_active): (a) against
+     run_scan at phase 8's point, interleaved (scan, ladder, ladder, scan)
+     six times, counts zeroed just before each ladder drive (one expand_v4
+     and one select_v4 a decoded frame): ms per decoded frame as median and
+     range ("unresolved" where the ranges overlap), audio-s/s, the rung of
+     each segment, live tokens p50 and max; one drive of each profiled
+     (device busy time, idle share); (b) easy scores (snr 32) over the
+     leading chunks in which every frame fits its rung (in-range
+     candidates <= K2, winners <= K), seg 1: best bit-equal to run_scan's,
+     32 tracebacks equal, on bench.py's ladder and on a two-rung ladder
+     cut from a fixed-K drive so that the exact chunks step up; (c) a
+     segment at each rung below 7000 from phase 4's loaded frontier cut to
+     it: kernels, plain versions and CPU bit-equal, frontier sorted by
+     cost; (d) expand_v4 and select_v4 against their plain versions at
+     each rung on a real frame and under load, times, bounds and
+     select_v4's torch.sort yardstick.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -235,6 +264,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -886,21 +917,24 @@ def phase_streaming(torch, path):
     return launches, model
 
 
-def bench_inputs(torch, pipe):
+def bench_inputs(torch, pipe, snr=2.0):
     """bench.py's drive at its operating point for `pipe`: 4 s a channel in
-    n chunks of seeded noise [n, B, S] and plausible scores (snr 2.0) as
-    ll_bias [n, B, T, P], on the card.  Returns (n, audio, ll_bias)."""
+    n chunks of seeded noise [n, B, S] and plausible scores (snr 2.0
+    unless asked otherwise) as ll_bias [n, B, T, P], on the card.  Returns
+    (n, audio, ll_bias)."""
     import numpy as np
 
     from vosk_tpu_torch.utils.benchdata import make_plausible_loglikes
 
     model = pipe.model
-    S, P = pipe.chunk_samples, model.am_config.num_pdfs
+    # a Kaldi directory's nnet3 AM has no TDNN-F config: one pdf a phone_of_pdf entry
+    P = model.am_config.num_pdfs if model.am_config else len(model.phone_of_pdf)
+    S = pipe.chunk_samples
     n_chunks = int(4.0 * model.config.sample_rate) // S
     rng = np.random.default_rng(SEED)
     audio = torch.from_numpy(
         (rng.standard_normal((n_chunks, B, S)) * 500).astype(np.float32)).to(pipe.device)
-    lb = make_plausible_loglikes(model.graph, P, B, n_chunks * pipe.T, snr=2.0, seed=SEED)
+    lb = make_plausible_loglikes(model.graph, P, B, n_chunks * pipe.T, snr=snr, seed=SEED)
     ll_bias = torch.from_numpy(np.ascontiguousarray(
         lb.reshape(n_chunks, pipe.T, B, P).swapaxes(1, 2))).to(pipe.device)
     return n_chunks, audio, ll_bias
@@ -937,6 +971,353 @@ def phase_run_scan(torch, bm):
         f"live tokens p50 {live.median().item():.0f} (min {live.min().item():.0f}, "
         f"max {live.max().item():.0f}); {count_line(launches)}")
     return launches
+
+
+# ------------------------------------------------------------------ phase 18
+
+ADAPTIVE_SEG = 4           # bench.py's run_adaptive(seg=4), at the default headroom 0.75
+# (b)'s scores: the path's pdf 32 above N(0, 1) noise, so a token on another
+# pdf leaves the beam (13) within a frame.  On the 2M-state graph the live
+# count still passes the smallest rung after about 1 s: tests/test_adaptive.py's
+# snr 8.0 reached 7000 live tokens, snr 32 551 in chunk 1 and 2088 in chunk 2
+# (NVIDIA H100 80GB HBM3, 700 W): about 400 arcs share each of the 6008
+# pdfs, so same-pdf tokens keep it high whatever the snr
+EASY_SNR = 32.0
+ADAPTIVE_T = 6             # (c)'s segment: frames of plausible scores at each rung
+ADAPTIVE_ROUNDS = 6        # (a)'s interleaved rounds (scan, ladder, ladder, scan)
+STEP_MIN_K = 256           # (b)'s step-up ladder: its lower rung is at least this
+TRACE_TOP = 8              # (a)'s profiled drives: the device rows listed by time
+
+
+def segment_rungs(recs):
+    """The K of each segment's records (run_adaptive's list)."""
+    return [int(r["pm"].shape[-1]) for r in recs]
+
+
+def live_per_frame(torch, recs):
+    """Live tokens of every decoded frame and channel, over a list of
+    run_scan-shaped records ([n, T, B, K] planes), as one float tensor."""
+    return torch.cat([torch.isfinite(r["f_cost"]).sum(-1).flatten() for r in recs]).float()
+
+
+def flat_records(recs):
+    """A run's records as traceback reads them: one [n * T, B, K|R] dict a
+    segment."""
+    return [{k: v.reshape(-1, *v.shape[2:]) for k, v in r.items()} for r in recs]
+
+
+def silent_am(torch, nm):
+    """A shallow copy of native model nm with its AM's output matrix zeroed:
+    the AM's scores are then its output bias, exactly, whatever order a
+    BLAS sums its products in."""
+    import copy
+
+    w = nm.am_params["output_w"]
+    out = copy.copy(nm)
+    out.am_params = {**nm.am_params, "output_w": torch.zeros_like(torch.as_tensor(w))}
+    return out
+
+
+def ladder_rung(decs, live) -> int:
+    """The rung (a K) run_adaptive takes for `live` tokens over its decoders."""
+    from vosk_tpu_torch.runtime.pipeline import ADAPTIVE_HEADROOM
+
+    return next((d.K for d in decs if live <= ADAPTIVE_HEADROOM * d.K), decs[-1].K)
+
+
+def step_ladder(need, ends, rungs):
+    """(k0, k1) for (b): a seg-1 run_adaptive drive that starts at k0 keeps
+    every frame of chunks 0..j within k0 (need: the most winners, and
+    in-range candidates over DEDUP_SLACK, a chunk), stays there while the
+    live count at a chunk's end (ends) is within the headroom, steps up
+    after chunk j and decodes chunk j + 1 within k1, the smallest of rungs
+    that takes it; None where no chunk j allows that."""
+    from vosk_tpu_torch.runtime.pipeline import ADAPTIVE_HEADROOM as h
+
+    for j in range(len(need) - 1):
+        k0 = max(need[:j + 1])
+        if k0 < STEP_MIN_K or any(n > h * k0 for n in ends[:j]) or ends[j] <= h * k0:
+            continue
+        k1 = next((k for k in rungs if k > k0 and k >= need[j + 1] and ends[j] <= h * k), None)
+        if k1 is not None:
+            return (k0, k1)
+    return None
+
+
+def trace_drive(torch, fn):
+    """fn() under torch.profiler: the span of the call on the host, the
+    device's busy time in it (the union of its device events), the share of
+    the span the device was idle, the expand_v4 + select_v4 kernels' device
+    time, in ms, and the TRACE_TOP device rows that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+    evs = prof.events()
+    dev = sorted((ev.time_range.start, ev.time_range.end) for ev in evs
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        raise AssertionError("the profiler recorded no device event")
+    busy, end = 0.0, -math.inf
+    for a, b in dev:  # the union of the device intervals
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+        end = max(end, b)
+    rows = {}  # device time and count by event name
+    for ev in evs:
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = rows.get(ev.name, (0.0, 0))
+            rows[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+    step = sum(us for k, (us, _) in rows.items() if "expand_v4" in k or "select_v4" in k)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    return {"span_ms": span_us / 1e3, "busy_ms": busy / 1e3, "idle": 1 - busy / span_us,
+            "step_ms": step / 1e3, "events": len(dev),
+            "top": {k[:60]: [round(us / 1e3, 3), n] for k, (us, n) in top}}
+
+
+def frontier_sorted(torch, fr) -> bool:
+    c = fr["cost"]
+    return bool((c[:, 1:] >= c[:, :-1]).all())
+
+
+def phase_adaptive(torch, bm):
+    """Phase 18: FusedPipeline.run_adaptive (the ladder 1024 / 2048 / 4096 /
+    7000, seg 4, headroom 0.75) at phase 8's point.  (a) run_adaptive
+    against run_scan, interleaved from a fresh state (scan, ladder, ladder,
+    scan) ADAPTIVE_ROUNDS times, counts zeroed just before each ladder
+    drive: ms per decoded frame (median, least and most), audio-s/s, each
+    segment's rung, live tokens p50 and max, and a verdict that reads
+    "unresolved" where the two spreads overlap; then one drive of each
+    under torch.profiler (`trace_drive`: device busy time and idle share);
+    (b) easy scores (snr EASY_SNR), seg 1, over the leading chunks (at
+    least 2) in which every frame of the ladder drive fits its rung
+    (select_v4's stats: in-range candidates <= K2 and winners <= K, so the
+    rung keeps what K = 7000 keeps): best bit-equal to run_scan's and 32
+    tracebacks equal, on bench.py's ladder and on a ladder (k0, k1) cut
+    from a fixed-K drive's stats (`step_ladder`) whose exact chunks step
+    up from k0 to k1; (c) one segment of ADAPTIVE_T    tracebacks equal; (c) one segment of ADAPTIVE_T
+    frames at each rung below 7000 (plausible scores, from phase 4's loaded
+    frontier cut to the rung) with the kernels, their plain versions on the
+    same CUDA tensors (set on the rung's own decoder) and the CPU: frontier
+    and all five record planes bit-equal, frontier slots sorted by cost;
+    (d) both kernels against their plain versions at each rung on a real
+    frame (the rung's fresh frontier after ADAPTIVE_T - 1 frames of those
+    scores) and under load (phase 4's `loaded_frame` at the rung), with
+    phase 4's `phase_frame_step`.  Returns (run_adaptive's
+    launches, {f"k{K}" or f"k{K}_loaded": kernel times})."""
+    from vosk_tpu_torch.ops import frame_step
+    from vosk_tpu_torch.ops.viterbi import DEDUP_SLACK
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    t_phase = time.perf_counter()
+    model = bm._model
+    P = model.am_config.num_pdfs
+    pipe = FusedPipeline(model, batch=B, chunk_seconds=0.48)
+    n_chunks, audio, ll_bias = bench_inputs(torch, pipe)
+    frames = n_chunks * pipe.T
+    audio_s = n_chunks * B * pipe.chunk_samples / model.config.sample_rate
+
+    def drive(adaptive, lb=ll_bias):
+        state = pipe.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if adaptive:
+            st, recs, best = pipe.run_adaptive(state, audio, ll_bias=lb, seg=ADAPTIVE_SEG)
+        else:
+            st, recs, best = pipe.run_scan(state, audio, ll_bias=lb)
+            recs = [recs]
+        best = best.cpu()
+        return time.perf_counter() - t0, st, recs, best
+
+    drive(False)
+    drive(True)  # warm-up: the rung decoders built, their scratch grown
+    decs = pipe._adaptive_decs
+    log(f"18 ladder decoders (B={B}, M={pipe.dec.M}): " + "; ".join(
+        f"K={d.K} E={d.E} K2={d.K2} R={d.R} pass 2 in "
+        f"{'global' if frame_step.select_in_global(d.E, d.K, d.K2, d.R) else 'shared'} memory"
+        for d in decs))
+    runs, launches, seen = {"run_scan": [], "run_adaptive": []}, None, {}
+    for _ in range(ADAPTIVE_ROUNDS):
+        for adaptive in (False, True, True, False):
+            if adaptive:
+                zero_counts()  # every kernel count, just before the ladder's drive
+            dt, st, recs, best = drive(adaptive)
+            if adaptive:
+                counts = read_counts("run_adaptive")
+                launches = launches or counts
+                if counts["expand_v4"] != frames or counts["select_v4"] != frames:
+                    raise AssertionError(f"run_adaptive launched {counts} over {frames} frames")
+            if not torch.isfinite(best).all():
+                raise AssertionError(f"run_adaptive={adaptive}: best costs are not finite")
+            name = "run_adaptive" if adaptive else "run_scan"
+            runs[name].append(dt / frames * 1e3)
+            live = live_per_frame(torch, recs)
+            drive_id = (segment_rungs(recs), live.median().item(), live.max().item())
+            if seen.setdefault(name, drive_id) != drive_id:
+                raise AssertionError(f"18a {name}: a drive took {drive_id}, the first "
+                                     f"{seen[name]}")
+            del st, recs, best
+    for name, (rungs, p50, top) in seen.items():
+        ms = sorted(runs[name])
+        log(f"18a {name} B={B}, {n_chunks} chunks x {pipe.T} frames, {len(ms)} drives: "
+            f"median {statistics.median(ms):.6f} ms per decoded frame [{ms[0]:.6f}, "
+            f"{ms[-1]:.6f}], {audio_s / (statistics.median(ms) * frames / 1e3):.3f} audio-s/s; "
+            f"rungs {rungs}; live tokens p50 {p50:.0f} max {top:.0f} ({SMI})")
+    sa, sf = sorted(runs["run_adaptive"]), sorted(runs["run_scan"])
+    verdict = ("run_adaptive faster in every drive" if sa[-1] < sf[0] else
+               "run_adaptive slower in every drive" if sa[0] > sf[-1] else
+               "the spreads overlap: unresolved")
+    log(f"18a ms per decoded frame, interleaved (scan, ladder, ladder, scan) x "
+        f"{ADAPTIVE_ROUNDS}: run_scan {runs['run_scan']}, run_adaptive {runs['run_adaptive']}; "
+        f"{verdict} (phase 8: {RUN_SCAN_MS.get('v4', float('nan')):.3f})")
+    # one drive of each under torch.profiler: the device's busy time and idle
+    # share of the drive's span
+    for adaptive in (False, True):
+        tr = trace_drive(torch, lambda: drive(adaptive))
+        name = "run_adaptive" if adaptive else "run_scan"
+        med = statistics.median(runs[name])
+        log(f"18a {name} profiled: span {tr['span_ms']:.3f} ms (unprofiled median "
+            f"{med * frames:.3f}), device busy {tr['busy_ms']:.3f} ms (expand_v4 + select_v4 "
+            f"{tr['step_ms']:.3f}), idle share {tr['idle']:.4f} of the span and "
+            f"{1 - tr['busy_ms'] / (med * frames):.4f} of the unprofiled median; "
+            f"{tr['events']} device events, the most device time [ms, events]: "
+            f"{json.dumps(tr['top'])} ({SMI})")
+
+    # (b) the easy case: the ladder must decode exactly as the fixed K.  A
+    # frame at rung K is exact when its in-range candidates fit the dedup cut
+    # K2 and its winners fit K (select_v4's stats).  First on bench.py's
+    # ladder, then on a ladder (k0, k1) cut from a fixed-K drive's stats so
+    # that the drive steps from k0 up to k1 while every frame is exact
+    _, _, easy = bench_inputs(torch, pipe, snr=EASY_SNR)
+    frame_stats = []
+
+    def with_stats(d):
+        select = d.step_ops.select
+
+        def counted(*a, **k):
+            st = torch.zeros((B, 3), dtype=torch.int32, device=d.device)
+            out = select(*a, **k, stats=st)
+            frame_stats.append((d.K, d.K2, st))
+            return out
+        return frame_step.StepOps(d.step_ops.expand, counted)
+
+    def stats_drive(ds, fn):
+        """fn() with select_v4's stats kept for every frame of decoders ds:
+        (fn's result, [(K, K2, stats [B, 3])] a frame)."""
+        frame_stats.clear()
+        for d in ds:
+            d.step_ops = with_stats(d)
+        try:
+            return fn(), list(frame_stats)
+        finally:
+            for d in ds:
+                d.step_ops = frame_step.KERNELS
+
+    def per_chunk(stats, col):
+        return [max(int(st[:, col].max()) for _, _, st in stats[i * pipe.T:(i + 1) * pipe.T])
+                for i in range(n_chunks)]
+
+    def easy_case(label):
+        """Hold run_adaptive (seg 1, the pipeline's ladder) to run_scan bit for
+        bit over the leading chunks whose every frame fits its rung; returns
+        the rungs of those chunks."""
+        pipe._adaptive_decs = None  # the ladder's decoders, built by a one-chunk drive
+        pipe.run_adaptive(pipe.init_state(), audio[:1], ll_bias=easy[:1], seg=1)
+        (_, srecs, _), stats = stats_drive(
+            pipe._adaptive_decs,
+            lambda: pipe.run_adaptive(pipe.init_state(), audio, ll_bias=easy, seg=1))
+        exact = [bool((st[:, 1] <= K2).all() and (st[:, 2] <= K).all()) for K, K2, st in stats]
+        chunk_exact = [all(exact[i * pipe.T:(i + 1) * pipe.T]) for i in range(n_chunks)]
+        n_easy = next((i for i, x in enumerate(chunk_exact) if not x), n_chunks)
+        log(f"18b {label}, snr {EASY_SNR}, seg 1: rungs {segment_rungs(srecs)}, the most "
+            f"in-range candidates a chunk {per_chunk(stats, 1)}; chunks whose every frame fits "
+            f"its rung's cut K2 and winners K: {chunk_exact}; the easy case is the first {n_easy}")
+        del srecs
+        if n_easy < 2:
+            raise AssertionError(f"18b {label}: fewer than 2 leading chunks decode exactly")
+        ea, el = audio[:n_easy], easy[:n_easy]
+        en = torch.full((n_easy, B), audio.shape[2], dtype=torch.int32)
+        fst, frecs, fbest = pipe.run_scan(pipe.init_state(), ea, en, ll_bias=el)
+        ast, arecs, abest = pipe.run_adaptive(pipe.init_state(), ea, en, ll_bias=el, seg=1)
+        same(torch, abest, fbest, f"18b {label}: run_adaptive best against run_scan's")
+        ftb = [dec.traceback(flat_records([frecs]), fst["frontier"], b) for b in range(B)]
+        atb = [dec.traceback(flat_records(arecs), ast["frontier"], b) for b in range(B)]
+        if atb != ftb:
+            raise AssertionError(f"18b {label}: a traceback of run_adaptive differs from "
+                                 f"run_scan's")
+        rungs = segment_rungs(arecs)
+        log(f"18b {label}, {n_easy} chunks, seg 1: rungs {rungs}; best bit-equal to "
+            f"run_scan's, {B} tracebacks equal ({sum(len(t[1]) for t in atb)} words)")
+        return rungs
+
+    dec = pipe.dec
+    easy_case("bench.py's ladder")
+    # the step-up ladder, from a fixed-K drive of the same scores: each chunk's
+    # need (winners, and in-range candidates over DEDUP_SLACK) and end live
+    (_, frecs, _), stats = stats_drive(
+        [dec], lambda: pipe.run_scan(pipe.init_state(), audio, ll_bias=easy))
+    need = [max(w, math.ceil(c / DEDUP_SLACK))
+            for w, c in zip(per_chunk(stats, 2), per_chunk(stats, 1))]
+    ends = [int(torch.isfinite(frecs["f_cost"][i, -1]).sum(-1).max()) for i in range(n_chunks)]
+    del frecs, stats
+    ladder = step_ladder(need, ends, pipe.adaptive_ladder)
+    log(f"18b run_scan at K={dec.K}, snr {EASY_SNR}: need a chunk {need}, live at its end "
+        f"{ends}; the step-up ladder {ladder}")
+    if ladder is None:
+        raise AssertionError("18b: no ladder steps up while every frame stays exact")
+    saved = pipe.adaptive_ladder
+    pipe.adaptive_ladder = ladder
+    try:
+        rungs = easy_case(f"the ladder {ladder}")
+    finally:
+        pipe.adaptive_ladder, pipe._adaptive_decs = saved, decs
+    if not any(a < b for a, b in zip(rungs, rungs[1:])):
+        raise AssertionError(f"18b: the exact chunks' rungs {rungs} never step up")
+    del easy
+
+    # (c) one segment at each rung, three ways; (d) the kernels at its shapes
+    cpu_dec = dec.to("cpu")
+    lfr, _ = loaded_frame(torch, bm)
+    chunks, valid = plausible_chunks(torch, model.graph, P, (ADAPTIVE_T,), SEED + 18)
+    ll, valid = chunks[0].to(dec.device), valid.to(dec.device)
+    ones = torch.ones(B, dtype=torch.bool, device=dec.device)
+    times = {}
+    for d in decs[:-1]:
+        fr0 = dec.resize_frontier(lfr, d.K)
+        outs = {}
+        for way, ops, dd in (("kernels", frame_step.KERNELS, d), ("plain", frame_step.PLAIN, d),
+                             ("CPU", frame_step.KERNELS, cpu_dec.clone_with_max_active(d.K))):
+            dd.step_ops = ops
+            try:
+                f, r, _, _ = dd.decode_chunk({k: v.to(dd.device) for k, v in fr0.items()},
+                                             ll.to(dd.device), valid.to(dd.device))
+            finally:
+                dd.step_ops = frame_step.KERNELS
+            outs[way] = ({k: v.cpu() for k, v in f.items()}, {k: v.cpu() for k, v in r.items()})
+        for way in ("plain", "CPU"):
+            same(torch, outs[way][0], outs["kernels"][0], f"18c K={d.K} frontier, kernels vs {way}")
+            same(torch, outs[way][1], outs["kernels"][1], f"18c K={d.K} records, kernels vs {way}")
+        if not frontier_sorted(torch, outs["kernels"][0]):
+            raise AssertionError(f"18c K={d.K}: select_v4 left the frontier unsorted")
+        live = torch.isfinite(outs["kernels"][0]["cost"]).sum(1)
+        log(f"18c rung K={d.K}: {ADAPTIVE_T} frames from the loaded frontier cut to the rung "
+            f"(live after {live.min().item()}-{live.max().item()}): frontier and 5 record "
+            f"planes bit-equal kernels / plain / CPU, slots sorted by cost")
+        # a real frame: the rung's fresh frontier after ADAPTIVE_T - 1 frames
+        fr, _, _, _ = d.decode_chunk(d.init_frontier(B), ll[:, :ADAPTIVE_T - 1],
+                                     valid[:, :ADAPTIVE_T - 1])
+        times[f"k{d.K}"] = phase_frame_step(torch, f"rung {d.K}", d, fr, ll, valid[:, -1])
+        fr, lll = loaded_frame(torch, bm, dec=d)
+        if not frontier_sorted(torch, fr):
+            raise AssertionError(f"18d K={d.K}: the loaded frontier is not sorted by cost")
+        times[f"k{d.K}_loaded"] = phase_frame_step(torch, f"rung {d.K} loaded", d, fr, lll, ones)
+    del cpu_dec
+    log(f"phase 18 (the adaptive ladder) took {time.perf_counter() - t_phase:.3f} s ({SMI})")
+    return launches, times
 
 
 def stage_line(stages) -> str:
@@ -1269,8 +1650,9 @@ def phase_kaldi(torch, tmp):
     torch.cuda.synchronize()
     log(f"kaldi batch: BatchModel load (no i-vector graft) {time.perf_counter() - t0:.3f} s")
     batch_launches = phase_serving(torch, bm)
+    mesh_launches = phase_mesh_nnet3(torch, bm, tmp)
     del bm
-    return launches, batch_launches, shapes
+    return launches, batch_launches, shapes, mesh_launches
 
 
 def stream_short(model, rate, seed, grammar=None):
@@ -2743,6 +3125,10 @@ TP_BEST_ATOL = 0.05
 # (c)'s planted faults (`tp_faults`), each of which must read above both
 # ll bounds
 TP_FAULTS = ("gather_reversed", "block_tdnnf10_aff_w", "block_prefinal_l2")
+MESH_ADAPTIVE = (2, 1)     # (e)'s run_adaptive mesh: the rung from the global batch
+MESH_NNET3 = (1, 2)        # (e)'s mesh over phase 9's nnet3 AM
+NNET3_CHUNKS = 2           # and its chunks of phase 8's drive (records come back whole)
+MESH_ADAPTIVE_SEG = 1      # its segments: a rung decision at every chunk boundary
 
 
 V3_DECODER = "phase11_v3_decoder.pt"  # phase 11's raw-graph decoder, saved for phase 17
@@ -2751,7 +3137,8 @@ V3_DECODER = "phase11_v3_decoder.pt"  # phase 11's raw-graph decoder, saved for 
 def mesh_inputs(tmp):
     """Phase 17's inputs for the ranks, one file each: the v4 decoder, the
     v3 decoder, and the scores and audio."""
-    return {k: str(Path(tmp) / f"phase17_{k}.pt") for k in ("v4", "data", "pipe")} | {
+    return {k: str(Path(tmp) / f"phase17_{k}.pt")
+            for k in ("v4", "data", "pipe", "adaptive", "nnet3")} | {
         "v3": str(Path(tmp) / V3_DECODER)}
 
 
@@ -2843,8 +3230,10 @@ def mesh_rank(mesh, paths, jobs):
     (`stripe_kernels` on a light frame and on a loaded one), "loaded" (the
     sharded v4 decode of a chunk from the loaded frontier), "profile" (one
     more sharded chunk under torch.profiler), "v3" (the sharded v3 decode
-    of one chunk), "pipe" (FusedPipeline(mesh) at phase 8's point).
-    Returns what the parent checks, on the host."""
+    of one chunk), "pipe" (FusedPipeline(mesh) at phase 8's point),
+    "adaptive" (FusedPipeline(mesh).run_adaptive at phase 8's point), "nnet3"
+    (FusedPipeline(mesh).run_scan on phase 9's Kaldi AM).  Returns what the
+    parent checks, on the host."""
     import torch
     import torch.distributed as dist
 
@@ -2857,7 +3246,8 @@ def mesh_rank(mesh, paths, jobs):
     card = mesh.device_type == "cuda"
     dev = torch.device("cuda", torch.cuda.current_device()) if card else torch.device("cpu")
     sync = torch.cuda.synchronize if card else (lambda: None)
-    inp = torch.load(paths["data"], weights_only=False)
+    inp = torch.load(paths["data"], weights_only=False) \
+        if set(jobs) & {"v4", "kernels", "loaded", "v3", "pipe"} else None
     r = dist.get_rank()
     out = {"device": str(dev)}
 
@@ -2936,7 +3326,108 @@ def mesh_rank(mesh, paths, jobs):
     if "pipe" in jobs:
         out["pipe"] = mesh_pipeline(torch, mesh, inp, torch.load(paths["pipe"], weights_only=False),
                                     torch.load(paths["v4"], weights_only=False), dev)
+    if "adaptive" in jobs:
+        out["adaptive"] = mesh_adaptive(torch, mesh, torch.load(paths["adaptive"], weights_only=False),
+                                        torch.load(paths["v4"], weights_only=False), dev)
+    if "nnet3" in jobs:
+        out["nnet3"] = mesh_nnet3(torch, mesh, torch.load(paths["nnet3"], weights_only=False), dev)
     return out
+
+
+def mesh_adaptive(torch, mesh, inp, dec, dev):
+    """17e in one rank: FusedPipeline(mesh).run_adaptive at phase 8's point
+    on phase 4's directory (its prepared decoder loaded, the AM silent) over
+    the two halves' scores, seg MESH_ADAPTIVE_SEG, counts zeroed just
+    before; the rungs it took, and best and frontier of the global batch."""
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.parallel import mesh as pm
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    nm = silent_am(torch, native.load_model(inp["model_dir"], device=dev))
+    nm._decoder = dec.to(dev)
+    audio, ll_bias = inp["audio"], inp["ll_bias"]
+    pipe = FusedPipeline(nm, batch=audio.shape[1], chunk_seconds=0.48, mesh=mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    st, recs, best = pipe.run_adaptive(pipe.init_state(), audio, ll_bias=ll_bias,
+                                       seg=MESH_ADAPTIVE_SEG)
+    best = pm.gather_channels(mesh, best, dim=1).cpu()
+    fr = {k: v.cpu() for k, v in pm.gather_channels(mesh, st["frontier"]).items()}
+    return {"secs": time.perf_counter() - t0, "launches": read_counts("17e run_adaptive"),
+            "rungs": segment_rungs(recs), "best": best, "frontier": fr,
+            "local_B": pipe.local_B}
+
+
+def mesh_nnet3(torch, mesh, inp, dev):
+    """17e in one rank: FusedPipeline(mesh).run_scan with phase 9's nnet3 AM
+    (no i-vector graft) and its prepared decoder, counts zeroed just
+    before: best, frontier and records of the global batch, and whether
+    the pipeline runs the loaded network itself."""
+    from vosk_tpu_torch.io import native
+    from vosk_tpu_torch.parallel import mesh as pm
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    dec = inp["decoder"].to(dev)
+    nm = native.NativeModel(**inp["fields"], am_params={}, graph=dec.graph, device=dev,
+                            am_override=inp["am"])
+    nm._decoder = dec
+    audio, ll_bias = inp["audio"].to(dev), inp["ll_bias"].to(dev)
+    pipe = FusedPipeline(nm, batch=audio.shape[1], chunk_seconds=0.48, mesh=mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    zero_counts()
+    st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)
+    sync()
+    launches = read_counts("17e nnet3 run_scan")
+    recs = pm.gather_channels(mesh, recs, 2)
+    return {"launches": launches, "whole_am": pipe.am is nm.am_override,
+            "best": pm.gather_channels(mesh, best, dim=1).cpu(),
+            "frontier": {k: v.cpu() for k, v in pm.gather_channels(mesh, st["frontier"]).items()},
+            # the records once, from rank 0
+            "records": {k: v.cpu() for k, v in recs.items()} if mesh.get_rank() == 0 else None}
+
+
+def phase_mesh_nnet3(torch, bm, tmp):
+    """17e (run in phase 9, on its directory without the graft, served by
+    `bm`): FusedPipeline(mesh=(1, 2)) with the nnet3 AM, which each rank
+    runs whole on its channels (as the source: its Nnet3Am has no parameter
+    dict for the mesh to shard), at phase 8's point with plausible scores;
+    NNET3_CHUNKS chunks; rank 0's best, frontier and record planes
+    bit-equal to the unsharded pipeline's on the card.  Returns rank 0's
+    launches."""
+    from vosk_tpu_torch.parallel.launch import run_group
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    t0 = time.perf_counter()
+    nm = bm._model
+    pipe = FusedPipeline(nm, batch=B, chunk_seconds=0.48)
+    _, audio, ll_bias = bench_inputs(torch, pipe)
+    audio, ll_bias = audio[:NNET3_CHUNKS], ll_bias[:NNET3_CHUNKS]
+    st, recs, best = pipe.run_scan(pipe.init_state(), audio, ll_bias=ll_bias)
+    paths = mesh_inputs(tmp)
+    torch.save({"decoder": pipe.dec.to("cpu"), "am": nm.am_override, "audio": audio.cpu(),
+                "ll_bias": ll_bias.cpu(), "fields": {
+                    k: getattr(nm, k) for k in ("config", "words", "phones", "phone_of_pdf",
+                                                "silence_pdfs")}}, paths["nnet3"])
+    res = run_group(mesh_rank, *MESH_NNET3, nm.device.type, "gloo", args=(paths, ("nnet3",)),
+                    timeout=600)
+    got = res[0]["nnet3"]
+    for r in res:
+        if not r["nnet3"]["whole_am"]:
+            raise AssertionError("17e: a rank did not run the loaded nnet3 AM whole")
+        same(torch, r["nnet3"]["best"], got["best"], "17e nnet3 rank agreement")
+    same(torch, got["best"], best.cpu(), "17e nnet3 mesh best against the unsharded pipeline")
+    same(torch, got["frontier"], {k: v.cpu() for k, v in st["frontier"].items()},
+         "17e nnet3 mesh frontier")
+    same(torch, got["records"], {k: v.cpu() for k, v in recs.items()}, "17e nnet3 mesh records")
+    log(f"17e FusedPipeline(mesh={MESH_NNET3}) on phase 9's Kaldi directory (nnet3 AM, no "
+        f"graft) run_scan B={B}, {best.shape[0]} chunks: each rank runs the whole AM; best, "
+        f"frontier and 5 record planes bit-equal to the unsharded pipeline's; group and "
+        f"reference {time.perf_counter() - t0:.3f} s ({SMI}); rank 0 "
+        f"{count_line(got['launches'])}")
+    return got["launches"]
 
 
 def mesh_pipeline(torch, mesh, inp, pipe_inp, dec, dev):
@@ -3087,7 +3578,7 @@ def phase_mesh(torch, bm, tmp):
                             lchunk.to(dec.device))
     lref_tb = loaded_tracebacks(dec, {k: v.cpu() for k, v in lref[1].items()}, lref[0], lfr)
     log(f"phase 17 inputs saved for the ranks: " + ", ".join(
-        f"{k} {Path(p).stat().st_size} bytes" for k, p in paths.items()))
+        f"{k} {Path(p).stat().st_size} bytes" for k, p in paths.items() if Path(p).exists()))
 
     def check_v4(res, n, what):
         for r in res[1:]:
@@ -3264,6 +3755,48 @@ def phase_mesh(torch, bm, tmp):
     if any(v[0] <= TP_LL_TOL or v[1] <= TP_SHARE_TOL for v in faults.values()):
         raise AssertionError(f"17c: a planted fault reads within the bound: {faults}")
     launches["mesh_pipeline"] = got["launches"]
+    # (e) run_adaptive on a (2, 1) mesh, the AM silent and the two data halves
+    # on different scores (phase 8's, and EASY_SNR's), so that each half alone
+    # would take another rung at some boundary: every rank takes the global
+    # batch's rung, and best and frontier equal the unsharded run's bit for bit
+    half = B // MESH_ADAPTIVE[0]
+    _, _, easy = bench_inputs(torch, pipe, snr=EASY_SNR)
+    mixed = torch.cat([ll_bias[:, :half], easy[:, half:]], dim=1)
+    del easy
+    torch.save({"audio": audio.cpu(), "ll_bias": mixed.cpu(),
+                "model_dir": str(Path(tmp) / "bench_model")}, paths["adaptive"])
+    spipe = FusedPipeline(silent_am(torch, model), batch=B, chunk_seconds=0.48)
+    ast, arecs, abest = spipe.run_adaptive(spipe.init_state(), audio, ll_bias=mixed,
+                                           seg=MESH_ADAPTIVE_SEG)
+    afr, rungs = {k: v.cpu() for k, v in ast["frontier"].items()}, segment_rungs(arecs)
+    decs = spipe._adaptive_decs
+    local = []  # the rungs each half would take from its own live count
+    for sl in (slice(0, half), slice(half, B)):
+        lives = [int(spipe.dec.live_tokens(spipe.dec.init_frontier(half)).max())] + [
+            int(torch.isfinite(r["f_cost"][-1, -1, sl]).sum(-1).max()) for r in arecs[:-1]]
+        local.append([ladder_rung(decs, n) for n in lives])
+    abest = abest.cpu()
+    del arecs, ast, spipe, mixed
+    if local[0] == local[1]:
+        raise AssertionError(f"17e: both data halves would take the rungs {local[0]} alone")
+    if rungs != [max(a, b) for a, b in zip(*local)]:
+        raise AssertionError(f"17e unsharded rungs {rungs}, not the larger of the halves' {local}")
+    t0 = time.perf_counter()
+    res = run_group(mesh_rank, *MESH_ADAPTIVE, dec.device.type, "gloo",
+                    args=(paths, ("adaptive",)), timeout=600)
+    got = res[0]["adaptive"]
+    if any(r["adaptive"]["rungs"] != rungs for r in res):
+        raise AssertionError(f"17e run_adaptive rungs {[r['adaptive']['rungs'] for r in res]}, "
+                             f"not the unsharded run's {rungs}")
+    same(torch, got["best"], abest, "17e run_adaptive best against the unsharded run's")
+    same(torch, got["frontier"], afr, "17e run_adaptive frontier against the unsharded run's")
+    log(f"17e FusedPipeline(mesh={MESH_ADAPTIVE}).run_adaptive at phase 8's point, seg "
+        f"{MESH_ADAPTIVE_SEG}, the AM silent ({got['local_B']} channels a data rank: phase 8's "
+        f"scores, snr {EASY_SNR}'s): alone the halves would take the rungs {local[0]} and "
+        f"{local[1]}; every rank takes the global run's {rungs}; best and frontier bit-equal "
+        f"to the unsharded run's; rank 0 {got['secs']:.3f} s; group "
+        f"{time.perf_counter() - t0:.3f} s ({SMI}); {count_line(got['launches'])}")
+    launches["mesh_adaptive"] = got["launches"]
     log(f"phase 17 (device mesh, sharded search) took {time.perf_counter() - t_phase:.3f} s")
     errs = {"expand_err": max(r["kernels"][load]["expand_err"] for r in card4
                               for load in ("light", "loaded")),
@@ -3337,6 +3870,12 @@ def main() -> int:
             del v3
             log(json.dumps(phase_mesh(torch, bm, tmp)))
         return 0
+    if sys.argv[1:] == ["--adaptive-only"]:  # phase 18 alone (on phase 4's model)
+        with tempfile.TemporaryDirectory() as tmp:
+            bm = phase_model(torch, dev, tmp)
+            launches_adaptive, adaptive_times = phase_adaptive(torch, bm)
+            log(json.dumps({"launches": launches_adaptive, "times": adaptive_times}))
+        return 0
     if sys.argv[1:] == ["--pitch-only"]:  # phase 13 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:
             *_, model, audio, info = phase_pitch(torch, tmp)
@@ -3356,6 +3895,8 @@ def main() -> int:
         max_err = max(max_err, b1_err)
         launches_streaming, bench_stream_model = phase_streaming(torch, Path(tmp) / "bench_model")
         launches_run_scan = phase_run_scan(torch, bm)
+        launches_adaptive, adaptive_times = phase_adaptive(torch, bm)
+        fs_times.update(adaptive_times)
         launches_v3, v3_times, v3_err, v3_profile = phase_v3(torch, bm, tmp)
         max_err = max(max_err, v3_err)
         t16 = time.perf_counter()
@@ -3364,7 +3905,8 @@ def main() -> int:
         t16 = time.perf_counter() - t16
         launches_mesh, mesh_times = phase_mesh(torch, bm, tmp)
         del bm
-        launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi) = phase_kaldi(torch, tmp)
+        launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi), launches_mesh_nnet3 = \
+            phase_kaldi(torch, tmp)
         kaldi_times, kaldi_err = phase_kernel(torch, dev, cases=(
             ("kaldi_ll", "float32", 1, 6008, n_kaldi),
             ("kaldi_tsil", "int32", 1, k_kaldi, k_kaldi),
@@ -3409,12 +3951,13 @@ def main() -> int:
             torch, tmp, native_rnnlm_config(Path(tmp) / "resc_native" / "rnnlm"))
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
+             "adaptive": launches_adaptive,
              "kaldi": launches_kaldi, "kaldi_batch": launches_kaldi_batch,
              "split": launches_split, "grammar": launches_grammar, **launches_v3,
              **rescoring, "pitch": launches_pitch, "pitch_batch": launches_pitch_batch,
              "speaker": launches_speaker, **launches_exact3, "server": launches_server,
              "transcriber": launches_cli, "recipe": launches_recipe, **launches_csr,
-             **launches_mesh,
+             **launches_mesh, "mesh_nnet3": launches_mesh_nnet3,
              **{f"cabi_{k}": {n: v.get(n, 0) for n in ("expand_v4", "select_v4", "gather_rows")}
                 for k, v in launches_cabi.items()}}
     gather_times = {**b1, **kaldi_times, **split_times, **v3_times, **mesh_times["gather"]}

@@ -79,3 +79,23 @@ def test_pitch_model_raises():
     with pytest.raises(ValueError):
         native.NativeModel(m.config, m.am_params, m.graph, m.words, m.phones,
                            m.phone_of_pdf, m.silence_pdfs, device="cpu").feature_extractor()
+
+
+def test_inverse_mel_scale_and_num_frames_ready_match_jax():
+    """inverse_mel_scale inverts mel_scale as the source's does, to f64
+    rounding; num_frames_ready gives the source's counts for Python ints
+    and for an int32 tensor of counts (exact: integer arithmetic)."""
+    mel = np.linspace(0.0, 4000.0, 97)
+    np.testing.assert_array_equal(TF.inverse_mel_scale(mel), JF.inverse_mel_scale(mel))
+    freq = np.linspace(0.0, 8000.0, 33)
+    np.testing.assert_allclose(TF.inverse_mel_scale(TF.mel_scale(freq)), freq, rtol=1e-12,
+                               atol=1e-9)
+    for fo_kw in ({}, {"frame_length_ms": 20.0, "frame_shift_ms": 5.0}):
+        jfo, tfo = JF.FrameOptions(**fo_kw), TF.FrameOptions(**fo_kw)
+        counts = [0, 1, 399, 400, 401, 559, 560, 561, 3200, 16000, 16001]
+        for n in counts:
+            assert TF.num_frames_ready(n, tfo) == JF.num_frames_ready(n, jfo)
+        got = TF.num_frames_ready(torch.tensor(counts, dtype=torch.int32), tfo)
+        want = JF.num_frames_ready(np.array(counts, np.int32), jfo)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.dtype == torch.int32

@@ -29,8 +29,12 @@ imported inside the test functions).
   (h) a rank that raises makes run_group raise while another waits in a
       collective;
   (i) the sharded search refuses the CSR layout and a max-active the model
-      axis does not divide, as the source cannot run them, and a model axis
-      over an nnet3 AM raises.
+      axis does not divide, as the source cannot run them;
+  (j) FusedPipeline(mesh) over a model axis of 2 on a Kaldi directory (an
+      nnet3 AM) runs the whole AM on each rank's channels, as the source
+      leaves it (`Nnet3Am.params` is empty, so its `shard_am_params` shards
+      nothing), against JAX's pipeline on the same mesh and the port's
+      unsharded one.
 """
 import sys
 
@@ -199,9 +203,11 @@ def _odd_am():
     return cfg, params, torch.from_numpy(feats)
 
 
-def _tensor_parallel_rank(mesh, audio):
-    """(f) and (g) at model = 2: FusedPipeline(mesh) with the TDNN-F sharded
-    over the model axis, and the forward of `_odd_am`."""
+def _tensor_parallel_rank(mesh, audio, kaldi_dir):
+    """(f), (g) and (j) at model = 2: FusedPipeline(mesh) with the TDNN-F
+    sharded over the model axis, the forward of `_odd_am`, and
+    FusedPipeline(mesh) on the Kaldi directory (nnet3 AM)."""
+    from vosk_tpu_torch.io.native import load_any
     from vosk_tpu_torch.models.tdnnf import TdnnfModel
     from vosk_tpu_torch.runtime.pipeline import FusedPipeline
 
@@ -212,13 +218,11 @@ def _tensor_parallel_rank(mesh, audio):
     odd = TdnnfModel(cfg, params, device="cpu", mesh=mesh)
     with torch.no_grad():
         odd_out = odd(feats)
-    model.am_override = object()  # an nnet3 AM in the model's place
-    try:
-        FusedPipeline(model, batch=B_PIPE, mesh=mesh)
-        nnet3 = None
-    except NotImplementedError as e:
-        nnet3 = str(e)
-    return {"jax_loaded": "jax" in sys.modules, "nnet3_refused": nnet3,
+    kaldi = load_any(kaldi_dir, device="cpu")
+    kpipe = FusedPipeline(kaldi, batch=B_PIPE, mesh=mesh)
+    _, _, kbest = kpipe.run_scan(kpipe.init_state(), audio)
+    return {"jax_loaded": "jax" in sys.modules, "nnet3_am": kpipe.am is kaldi.am_override,
+            "nnet3_best": pm.gather_channels(mesh, kbest, dim=1),
             "odd_out": odd_out, "odd_dims": dict(odd.shard_dims),
             "shapes": {k: tuple(v.shape) for k, v in pipe.am.params.items()},
             "dims": dict(pipe.am.shard_dims),
@@ -262,8 +266,24 @@ def data_parallel():
 
 
 @pytest.fixture(scope="module")
-def tensor_parallel():
-    res = run_group(_tensor_parallel_rank, 4, 2, "cpu", args=(_audio(),), timeout=TIMEOUT)
+def kaldi_dir(tmp_path_factory):
+    """A Kaldi V2 directory (nnet3 final.mdl, HCLG.fst, no i-vector) of the
+    test model, written by the port's exporter (byte-identical to the
+    source's, tests/test_torch_copies.py)."""
+    from vosk_tpu_torch.io.kaldi_export import export_kaldi_dir
+    from vosk_tpu_torch.utils import kaldidata
+
+    m = _model()
+    kaldidata.one_phone_per_pdf(m)
+    path = tmp_path_factory.mktemp("kaldi_mesh") / "hclg"
+    export_kaldi_dir(m, path)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def tensor_parallel(kaldi_dir):
+    res = run_group(_tensor_parallel_rank, 4, 2, "cpu", args=(_audio(), kaldi_dir),
+                    timeout=TIMEOUT)
     assert not any(r["jax_loaded"] for r in res)
     return res
 
@@ -496,12 +516,57 @@ def test_sharded_search_refuses_what_the_source_cannot_run(sharded, tensor_paral
     """The sharded search raises on the CSR layout (the source's sharded
     step reads padded rows, which CSR has not) and on a max-active that
     the model axis does not divide (the source asserts it); a model axis
-    over an nnet3 AM raises, naming ROADMAP A19."""
+    over an nnet3 AM does not raise: every rank runs the loaded network
+    itself (test_nnet3_pipeline_over_model_axis_matches_jax)."""
     refused = sharded[0]["refused"]
     assert refused["csr"][0] == "NotImplementedError" and "csr" in refused["csr"][1]
     assert refused["k_not_divisible"][0] == "ValueError" and "254" in refused[
         "k_not_divisible"][1]
-    assert "A19" in tensor_parallel[0]["nnet3_refused"]
+    assert all(r["nnet3_am"] for r in tensor_parallel)
+
+
+@pytest.fixture(scope="module")
+def unsharded_nnet3_best(kaldi_dir):
+    from vosk_tpu_torch.io.native import load_any
+    from vosk_tpu_torch.runtime.pipeline import FusedPipeline
+
+    pipe = FusedPipeline(load_any(kaldi_dir, device="cpu"), batch=B_PIPE)
+    return pipe.run_scan(pipe.init_state(), _audio())[2]
+
+
+@pytest.mark.parametrize("reference", ["jax", "unsharded"])
+def test_nnet3_pipeline_over_model_axis_matches_jax(kaldi_dir, tensor_parallel,
+                                                    unsharded_nnet3_best, reference):
+    """(j) FusedPipeline(mesh) on the Kaldi directory over mesh (4, 2): each
+    rank runs the whole nnet3 AM on its channels, as the source's pipeline
+    does (its `Nnet3Am.params` is empty, so `shard_am_params` shards
+    nothing and every device computes the network whole).  Best costs
+    against JAX's pipeline on mesh (4, 2) within test_pipeline_mesh_matches_
+    jax's tensor-parallel tolerances (rtol 0.05, atol 0.2: another
+    framework's products and sums), and against the port's unsharded
+    pipeline within rtol 1e-5 / atol 1e-3 (the same products over fewer
+    rows: only BLAS's summation order moves)."""
+    got = tensor_parallel[0]["nnet3_best"]
+    for r in tensor_parallel[1:]:
+        _eq(r["nnet3_best"], got, "rank agreement")
+    assert got.shape == (N_CHUNKS, B_PIPE) and torch.isfinite(got).all()
+    if reference == "unsharded":
+        np.testing.assert_allclose(got.numpy(), unsharded_nnet3_best.numpy(), rtol=1e-5,
+                                   atol=1e-3)
+        return
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import vosk_tpu
+    from vosk_tpu.parallel import mesh as jpm
+    from vosk_tpu.runtime.pipeline import FusedPipeline as JFused
+
+    mesh = jpm.make_mesh(4, 2)
+    jp = JFused(vosk_tpu.Model(kaldi_dir)._model, batch=B_PIPE, mesh=mesh)
+    assert jp.params == {}  # the source's Nnet3Am: nothing for the mesh to shard
+    _, _, jbest = jp.run_scan(jp.init_state(),
+                              jax.device_put(_audio(), NamedSharding(mesh, P(None, "data"))))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jbest), rtol=0.05, atol=0.2)
 
 
 @pytest.mark.parametrize("n_model", [2, 4])

@@ -94,3 +94,36 @@ def test_bf16_matmul_keeps_f32_products():
     got = tm._mm(torch.from_numpy(x), tm.params["tdnn1_w"])
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_public_flush_matches_jax():
+    """StreamingAm.flush(state, ivector=None), the public end-of-stream
+    flush, on a TDNN-F at the toy model's widths (toydata.build_toy_model:
+    13 MFCCs, hidden 64, bottleneck 16, prefinal 32, 9 pdfs, strides (1, 1,
+    3), f32): after three ragged chunks, two flushes in a row (the first
+    must emit).  Outputs within the f32 tolerance of
+    process_chunk above (rtol = atol = 1e-4); masks and counters exact."""
+    cfg = TdnnfConfig(feat_dim=13, hidden_dim=64, bottleneck_dim=16, prefinal_dim=32,
+                      num_pdfs=9, time_strides=(1, 1, 3), subsample=3,
+                      compute_dtype="float32")
+    jcfg = JCfg(**dataclasses.asdict(cfg))
+    jm = JModel(jcfg, j_init(jcfg, seed=2))
+    tm = tdnnf_params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}, cfg,
+                               device="cpu")
+    rng = np.random.default_rng(2)
+    B, F = 3, 17
+    js, ts = jm.init_stream_state(B, F), tm.init_stream_state(B, F)
+    for c in range(3):
+        feats = rng.standard_normal((B, F, 13)).astype(np.float32)
+        valid = np.ones((B, F), bool)
+        valid[c % B, 5 + c:] = False
+        js, _, _ = jm.process_chunk(js, feats, valid)
+        ts, _, _ = tm.process_chunk(ts, torch.from_numpy(feats), torch.from_numpy(valid))
+    for n in range(2):
+        js, jo, jv = jm.flush(js)
+        ts, to, tv = tm.flush(ts, ivector=None)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        assert tv.any() or n
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL["float32"])
+        for k in ("hist_len", "feats_seen", "out_emitted"):
+            np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]), err_msg=k)

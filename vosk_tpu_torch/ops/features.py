@@ -90,6 +90,19 @@ def mel_scale(freq):
     return 1127.0 * np.log(1.0 + freq / 700.0)
 
 
+def inverse_mel_scale(mel):
+    return 700.0 * (np.exp(mel / 1127.0) - 1.0)
+
+
+def num_frames_ready(num_samples, frame_opts: FrameOptions):
+    """Number of complete (snip-edges) frames for a total sample count: an
+    int, or an integer tensor of counts."""
+    ws, sh = frame_opts.window_size, frame_opts.window_shift
+    if isinstance(num_samples, (int, np.integer)):
+        return 0 if num_samples < ws else (num_samples - ws) // sh + 1
+    return torch.where(num_samples < ws, 0, (num_samples - ws) // sh + 1)
+
+
 def feature_window(opts: FrameOptions) -> np.ndarray:
     n = opts.window_size
     a = 2.0 * math.pi / (n - 1)
@@ -265,7 +278,7 @@ class FeatureExtractor:
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
         fo = self.frame_opts
         N = wav.shape[-1]
-        n = 0 if N < fo.window_size else (N - fo.window_size) // fo.window_shift + 1
+        n = num_frames_ready(N, fo)
         if n <= 0:
             return torch.zeros(wav.shape[:-1] + (0, self.dim), dtype=torch.float32,
                                device=self.device)
@@ -350,7 +363,7 @@ class FeatureExtractor:
         # with pitch, a frame is emitted only once its NCCF lookahead (plus
         # the decimation FIR's halfwidth) is buffered: chunk-invariance
         ready = new_total - self._pitch_la
-        total_ready = torch.where(ready < ws, 0, (ready - ws) // sh + 1)
+        total_ready = num_frames_ready(ready, fo)
         n_new = (total_ready - emitted).to(torch.int32)  # <= F by construction
 
         # frame f starts at buffer offset (emitted + f) * sh - (new_total - buf_len)

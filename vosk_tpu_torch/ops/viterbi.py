@@ -56,6 +56,11 @@ for eps rounds), one stable sort for the dedup, the v3 step's records
 with CSR arc ids in lat_arc.  Its device code
 is torch ops: the source reaches no Pallas kernel on it.
 
+`clone_with_max_active`, `resize_frontier` and `live_tokens` serve the
+adaptive max-active ladder (runtime/pipeline.py `run_adaptive`): decoders
+at smaller max_active over the same device tables, and the frontier cut or
+padded between them (tests/test_torch_adaptive.py).
+
 Bit-parity notes: shifts that the source makes logical are taken after a
 mask; the f16 weight is read from the top half-word without a saturating
 cast; cost keys rely on int32 wraparound, which torch's int32 arithmetic
@@ -370,6 +375,50 @@ class BatchViterbi:
             prefixes.append([])
         return states, cost, prefixes
 
+    def clone_with_max_active(self, k: int) -> "BatchViterbi":
+        """A decoder over the same graph tables with max_active k (source
+        :230-257): every device table and host view is shared by reference,
+        and only the K-derived sizes, the initial closure, the kernel scratch
+        and the dispatch lock are the clone's own.  R follows the source's
+        clone, not `__init__` (no cap at K + Ee).  The step's kernels
+        (`step_ops`, `gather_op`) are copied when the clone is made: a later
+        swap on this decoder does not reach it.  max_active is an upper bound
+        on live tokens, so wherever fewer stay live than the clone's K, it
+        decodes exactly as this decoder.  The padded layout only."""
+        if self.layout != "padded":
+            raise ValueError("clone_with_max_active requires the padded layout")
+        c = copy.copy(self)
+        c.params = dataclasses.replace(self.params, max_active=k)
+        K = min(k, max(self.S, 1))
+        c.K = K
+        c.E = K * self.M
+        c.K2 = max(K, int(np.ceil(DEDUP_SLACK * K)))
+        c.Eb = max(1, min(K, self.Eb))
+        c.R = min(max(K, min(2048, c.E)), c.E)
+        c._init_states, c._init_costs, c._init_prefixes = c._initial_closure()
+        c._dispatch_lock = threading.RLock()
+        c._select_scratch = SelectScratch()
+        return c
+
+    def resize_frontier(self, frontier, k_new: int) -> dict:
+        """A frontier moved to k_new slots, between max_active variants
+        (source :259-275): truncation keeps slots [:k_new] (select leaves
+        the slots sorted by cost, so these are the best tokens), growth pads
+        dead slots (state S, cost +inf, tsil 0)."""
+        B, K = frontier["state"].shape
+        if k_new == K:
+            return frontier
+        if k_new < K:
+            return {k: v[:, :k_new].contiguous() for k, v in frontier.items()}
+        fill = {"state": self.S, "cost": float("inf"), "tsil": 0}
+        return {k: torch.cat([v, v.new_full((B, k_new - K), fill[k])], dim=1)
+                for k, v in frontier.items()}
+
+    def live_tokens(self, frontier) -> np.ndarray:
+        """Per-channel count of live (finite-cost) tokens, on the host (one
+        pull): the adaptive max-active signal (source :277-281)."""
+        return np.isfinite(to_host(frontier["cost"])).sum(axis=1)
+
     def to(self, device) -> "BatchViterbi":
         """The same decoder with its device tables on `device` (host views
         and the prepared graph are shared, not rebuilt)."""
@@ -568,6 +617,17 @@ class BatchViterbi:
         if not np.isfinite(cost[slot]):
             return None, np.inf
         return slot, best_cost
+
+    def traceback(self, records, frontier, channel):
+        """Best-path traceback on the host (source :1617-1633): (cost,
+        olabels, per-frame pdf alignment).  records may be segments of
+        different K widths (`FusedPipeline.run_adaptive`'s, each flattened
+        to [T, B, K]): a frame's row is read at the slot the next frame
+        names, whatever its width.  The source's use_final / at_start /
+        init_states are not taken (no caller sets them); traceback_with_frames
+        keeps them."""
+        cost, ols_frames, pdfs = self.traceback_with_frames(records, frontier, channel)
+        return cost, [o for o, _ in ols_frames], pdfs
 
     def traceback_with_frames(
         self, records, frontier, channel, use_final=True, at_start=True,

@@ -5,7 +5,8 @@ Port of `vosk_tpu/parallel/mesh.py`.  The mesh is (data, model), one
 process per rank:
   - `data`: channels (concurrent streams), the throughput axis.  A rank holds
     the channels of its data coordinate: feature rings, AM context, decode
-    frontiers and records of B / n_data channels;
+    frontiers and records of B / n_data channels (`FusedPipeline.run_adaptive`
+    takes the global batch's live count with a MAX all-reduce over it);
   - `model`: the acoustic model's hidden dimension (`am_param_sharding`,
     tensor parallel with explicit collectives in models/tdnnf.py), and the
     expansion of the utterance-sharded search
@@ -152,6 +153,14 @@ def all_reduce_min(mesh: DeviceMesh, axis: str, x: torch.Tensor) -> torch.Tensor
     g = mesh.get_group(axis)
     _ready(x, g)
     dist.all_reduce(x, op=dist.ReduceOp.MIN, group=g)
+    return x
+
+
+def all_reduce_max(mesh: DeviceMesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """x reduced by MAX over `axis`, in place (and returned)."""
+    g = mesh.get_group(axis)
+    _ready(x, g)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
     return x
 
 

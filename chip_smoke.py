@@ -14,12 +14,16 @@ leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which rais
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
      parallel, linked into one .so) and print ptxas's registers, shared
-     memory and spills per kernel; build, if absent, the native lattice
-     library (make -C core libvosk_tpu_core.so);
+     memory and spills per kernel (expand_v4's and gather_rows's kernels
+     must not spill); build, if absent, the native lattice library (make
+     -C core libvosk_tpu_core.so);
   3. the gather kernel against its plain PyTorch version on the card, bit
      for bit, at the shapes its v4 call sites had plus a ragged N, index
-     P-1 and out-of-range indices, with its time, the plain time and one
-     torch.gather call's;
+     P-1 and out-of-range indices, under its own choice of how it reads
+     the table row and under each of GATHER_STAGES (in place, staged,
+     multicast over a cluster of a channel's tiles), with its time, the
+     plain time, one torch.gather call's, and each stage's time five times
+     interleaved (median and range; so at every gather shape below);
   4. generate the full-width bench model (TDNN-F 40/512/96/192/6008, 11
      layers, bf16; a 2M-state realistic graph with 100k words), save it as
      a native model dir and open it with BatchModel(max_batch_size=32);
@@ -36,7 +40,14 @@ leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which rais
      count and winners per channel and its scratch bytes a call,
      select's yardstick (one stable torch.sort of the same pool, the first
      of the three sorts it replaces), and expand's two ways of reading the
-     ll row, five times each, interleaved; then one decode_chunk at B = 32
+     ll row (EXPAND_STAGES), five times each, interleaved.  expand_v4
+     is held to its contract: keys bit-equal everywhere, nsm and pm where
+     the key is below BIG (it leaves them unwritten elsewhere); select_v4
+     runs on the expand kernel's pool with the payload of every BIG key
+     overwritten by seeded garbage and must give the plain selection of the
+     plain pool.  expand's bound counts 4 bytes a candidate's key and 8 a
+     real arc's payload (the count before PR 15, all three planes, is
+     printed beside it); then one decode_chunk at B = 32
      under torch.profiler: its device kernels by name with counts per
      frame, where the frame step may launch only expand_v4 and select_v4's
      two kernels, at most 3 a frame, and no sort or gather;
@@ -208,7 +219,8 @@ leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which rais
      frontier, the pm / state / f_cost planes and every channel's
      traceback equal the unsharded decode_chunk's on the card (the lattice
      planes differ by design: the source keys candidates past the synced
-     beam BIG); each rank's expand_v4 stripe (slot_base i, slot_stride 4)
+     beam BIG); each rank's expand_v4 stripe (slot_base i, slot_stride 4;
+     every stage choice, under expand's contract; stripe 0's stages timed)
      and the merged pool through select_v4 against their plain versions,
      bit for bit, timed in rank 0 beside the unsharded pool, on a light
      frame and on phase 4's loaded one (every rank's contribution
@@ -285,7 +297,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def event_ms(torch, fn, n=100):
+def event_ms(torch, fn, n=100, sleep_cycles=200_000_000):
     """Device time of one call of fn, from CUDA events around n calls
     enqueued behind a device-side sleep (so host launch overhead is not
     timed), after a warm-up."""
@@ -294,7 +306,7 @@ def event_ms(torch, fn, n=100):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(n):
         fn()
@@ -318,6 +330,25 @@ def bound(nbytes, ops=0):
     """(least milliseconds the card could take, what bounds it)."""
     b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_no_spills(build_log, kernels=("expand_v4_kernel", "gather_rows_kernel")):
+    """{function: [spill store bytes, spill load bytes]} from ptxas's -v
+    report (the line after "Function properties for <name>"); raises if a
+    function of `kernels` spills."""
+    spills, fn = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and fn is not None:
+            words = line.replace(",", " ").split()
+            spills[fn] = [int(words[words.index("spill") - 2]),
+                          int(words[len(words) - 1 - words[::-1].index("spill") - 2])]
+            fn = None
+    bad = {f: v for f, v in spills.items() if any(k in f for k in kernels) and any(v)}
+    if bad or not any(any(k in f for k in kernels) for f in spills):
+        raise AssertionError(f"ptxas: spills in {bad or 'no report for the kernels'}")
+    return spills
 
 
 def zero_counts():
@@ -361,12 +392,25 @@ def count_line(counts) -> str:
     return ", ".join(f"{k} launches {v}" for k, v in counts.items())
 
 
+def stage_times(torch, fns, reps=5) -> str:
+    """Each of {stage: fn} (one kernel launch each) timed `reps` times,
+    interleaved: median [min, max] ms of each.  The sleep ahead of each
+    timing is a tenth of event_ms's: it still outlasts the host's enqueue
+    of 100 launches."""
+    ts = {st: [] for st in fns}
+    for _ in range(reps):
+        for st, fn in fns.items():
+            ts[st].append(event_ms(torch, fn, sleep_cycles=20_000_000))
+    return "; ".join(f"{st} {statistics.median(t):.6f} [{min(t):.6f}, {max(t):.6f}] ms"
+                     for st, t in ts.items())
+
+
 def phase_kernel(torch, dev, cases=(
         ("ll", "float32", B, 6008, 28000),   # acoustic lookup ll[b, pdf]
         ("tsil", "int32", B, 7000, 7000),    # trailing-silence lookup
         ("ragged", "float32", 3, 300, 4097),  # N one past a block
 )):
-    from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from vosk_tpu_torch.ops.gather import GATHER_STAGES, gather_rows, gather_rows_plain
 
     g = torch.Generator().manual_seed(SEED)
     results = {}
@@ -381,14 +425,16 @@ def phase_kernel(torch, dev, cases=(
         idx = torch.randint(0, P, (b, N), generator=g, dtype=torch.int32)
         idx[0, 0], idx[0, 1], idx[-1, -1], idx[-1, 2] = P - 1, P, -1, 2**31 - 1
         table, idx = table.to(dev), idx.to(dev)
-        got = gather_rows(table, idx)
         ref = gather_rows_plain(table, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(bits(torch, got), bits(torch, ref)):
-            raise AssertionError(f"gather kernel != torch.gather at {name} {b}x{P}<-{N}")
-        if got[0, 1].item() != 0 or got[-1, -1].item() != 0:
-            raise AssertionError("out-of-range index did not give 0")
-        max_err = max(max_err, (got.double() - ref.double()).abs().max().item())
+        for stage in (None, *GATHER_STAGES):  # the kernel's choice, then each forced
+            got = gather_rows(table, idx, stage=stage)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(torch, got), bits(torch, ref)):
+                raise AssertionError(
+                    f"gather kernel (row read: {stage}) != torch.gather at {name} {b}x{P}<-{N}")
+            if got[0, 1].item() != 0 or got[-1, -1].item() != 0:
+                raise AssertionError("out-of-range index did not give 0")
+            max_err = max(max_err, (got.double() - ref.double()).abs().max().item())
         ms = event_ms(torch, lambda: gather_rows(table, idx))
         plain_ms = event_ms(torch, lambda: gather_rows_plain(table, idx))
         # the library yardstick: one bare torch.gather, on the same indices
@@ -403,16 +449,51 @@ def phase_kernel(torch, dev, cases=(
         log(f"gather {name} [{b},{P}] <- [{b},{N}] {dtype}: bit-equal; "
             f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, torch.gather {lib_ms:.6f} ms, "
             f"bound {b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
+        log(f"gather {name}, row read 5 x interleaved: " + stage_times(
+            torch, {st: lambda st=st: gather_rows(table, idx, stage=st) for st in GATHER_STAGES}))
     return results, max_err
 
 
+def pool_err(torch, got, want, what):
+    """Largest bit distance between the expand kernel's pool and the plain
+    version's under the pool's contract: every key, and nsm and pm where
+    the key is below BIG (the kernel leaves them unwritten elsewhere).
+    Raises unless 0."""
+    from vosk_tpu_torch.ops.frame_step import BIG_I32
+
+    real = want[0] < BIG_I32
+    err = max(bit_err(torch, got[0], want[0]),
+              *(bit_err(torch, a[real], b[real]) for a, b in zip(got[1:], want[1:])))
+    if err:
+        raise AssertionError(f"expand_v4 kernel != plain at {what}")
+    return err
+
+
+def garble_payload(torch, pool, seed):
+    """The pool with the nsm and pm of every BIG-keyed candidate replaced by
+    seeded garbage; returns (pool, words garbled a plane)."""
+    from vosk_tpu_torch.ops.frame_step import BIG_I32
+
+    cb, nsm, pm = (x.clone() for x in pool)
+    big = cb == BIG_I32
+    n = int(big.sum())
+    g = torch.Generator(device=cb.device).manual_seed(seed)
+    for plane in (nsm, pm):
+        plane[big] = torch.randint(-(2**31), 2**31, (n,), generator=g, device=cb.device,
+                                   dtype=torch.int64).int()
+    return (cb, nsm, pm), n
+
+
 def expand_work(torch, dec, fr, P):
-    """(bytes, operations) that expand_v4 must move and do on frontier fr:
-    every token state; cost and arc row of each live token (packed16: the
-    pdf words of all M slots and the next states of the finite arcs;
-    exact3: the weights of all M slots, next state and meta of the finite
-    arcs); the ll entries those finite arcs reach, once per channel; the
-    three [B, K*M] outputs."""
+    """(bytes, operations, bytes as counted before PR 15) that expand_v4
+    must move and do on frontier fr: every token state; cost and arc row of
+    each live token (packed16: the pdf words of all M slots and the next
+    states of the finite arcs; exact3: the weights of all M slots, next
+    state and meta of the finite arcs); the ll entries those finite arcs
+    reach, once per channel; the key of every candidate ([B, K*M] int32)
+    and the next state and pm word of each finite arc of a live token (nsm
+    and pm are defined where the key is below BIG).  The count before PR 15
+    took all three [B, K*M] planes as output."""
     Bn, K = fr["state"].shape
     M, S = dec.M, dec.S
     live = fr["state"] != S
@@ -430,9 +511,9 @@ def expand_work(torch, dec, fr, P):
     hit = finite & (pdf < P)
     reached = torch.unique(b_of[:, None].expand_as(pdf)[hit].long() * (1 << 32) + pdf[hit])
     n_live, n_fin = int(live.sum()), int(finite.sum())
-    nbytes = (4 * Bn * K + 4 * n_live + 4 * M * n_live + per_finite * n_fin
-              + 4 * reached.numel() + 12 * Bn * K * M)
-    return nbytes, 3 * n_fin  # an add and a fused multiply-add per finite arc
+    inputs = 4 * Bn * K + 4 * n_live + 4 * M * n_live + per_finite * n_fin + 4 * reached.numel()
+    # an add and a fused multiply-add per finite arc
+    return inputs + 4 * Bn * K * M + 8 * n_fin, 3 * n_fin, inputs + 12 * Bn * K * M
 
 
 def select_work(torch, pool, valid, beam, lattice_beam, rec):
@@ -474,17 +555,24 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
           dec.mbits, dec.pdf_bits if dec.pack == "exact3" else None)
     err = {"expand_v4": 0, "select_v4": 0}
     ref = fs.expand_v4_plain(*ex)
+    pools = {}
     for stage in (None, *fs.EXPAND_STAGES):  # the kernel's choice, then each forced
-        for a, b in zip(fs.expand_v4(*ex, stage=stage), ref):
-            err["expand_v4"] = max(err["expand_v4"], bit_err(torch, a, b))
-            if not torch.equal(a, b):
-                raise AssertionError(f"expand_v4 kernel (ll read: {stage}) != plain at {name}")
-    sel = (*ref, fr, valid, dec.params.beam, dec.params.lattice_beam, S, dec.mbits, dec.K2, R)
+        pools[stage] = fs.expand_v4(*ex, stage=stage)
+        err["expand_v4"] = max(err["expand_v4"], pool_err(torch, pools[stage], ref,
+                                                          f"{name} (ll read: {stage})"))
+    # select_v4 on the kernel's pool, the payload of every BIG key garbled
+    # (the expand kernel leaves it unwritten), against the plain selection
+    # of the plain pool
+    garbled, n_big = garble_payload(torch, pools[None], SEED + Bn + K)
+    del pools
+    sel_args = (fr, valid, dec.params.beam, dec.params.lattice_beam, S, dec.mbits, dec.K2, R)
+    sel = (*ref, *sel_args)
     outs = [dec.record_buffers((2, Bn)) for _ in range(2)]
     k_out = {k: v[1] for k, v in outs[0].items()}
     p_out = {k: v[1] for k, v in outs[1].items()}
     stats = torch.zeros((Bn, 3), dtype=torch.int32, device=dec.device)
-    kf, krec = fs.select_v4(*sel, k_out, scratch=dec._select_scratch, stats=stats)
+    kf, krec = fs.select_v4(*garbled, *sel_args, k_out, scratch=dec._select_scratch,
+                            stats=stats)
     pf, prec = fs.select_v4_plain(*sel, p_out)
     torch.cuda.synchronize()
     st = stats.cpu()
@@ -498,12 +586,18 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
         for k in got:
             err["select_v4"] = max(err["select_v4"], bit_err(torch, got[k], want[k]))
             if not torch.equal(bits(torch, got[k]), bits(torch, want[k])):
-                raise AssertionError(f"select_v4 kernel != plain at {name}: {what}[{k}]")
+                raise AssertionError(f"select_v4 kernel on the garbled kernel pool != plain "
+                                     f"at {name}: {what}[{k}]")
     live = int((fr["state"] != S).sum())
     kept = int((pf["cost"] < float("inf")).sum())
     # bounds from what this frame needs: each needed input byte read once,
     # each output byte written once
-    ex_b = bound(*expand_work(torch, dec, fr, P))
+    ex_bytes, ex_ops, ex_bytes_before = expand_work(torch, dec, fr, P)
+    ex_b = bound(ex_bytes, ex_ops)
+    log(f"expand_v4 {name}: select_v4 on the kernel pool with {n_big} BIG-keyed payloads "
+        f"garbled = plain on the plain pool; bound {ex_b[0]:.6f} ms in the count of PR 15 "
+        f"({ex_bytes} bytes), {bound(ex_bytes_before, ex_ops)[0]:.6f} ms in the count before "
+        f"({ex_bytes_before} bytes)")
     sel_b = bound(*select_work(torch, ref, valid, dec.params.beam, dec.params.lattice_beam,
                                prec))
     cbits = ref[0]
@@ -519,18 +613,15 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
         out[kname] = (ms, plain_ms, b_ms, b_by, err[kname], lib_ms)
         log(f"{kname} {name} ({dec.pack} rows) B={Bn} K={K} M={M} R={R} K2={dec.K2} P={P}, "
             f"{live} live tokens, "
-            f"{kept} kept: bit-equal to plain; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms"
+            f"{kept} kept: "
+            + ("keys bit-equal to plain, nsm and pm where below BIG" if kname == "expand_v4"
+               else "bit-equal to plain (on the garbled kernel pool)")
+            + f"; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms"
             + (f", stable torch.sort of the pool {lib_ms:.6f} ms" if lib else "")
             + f", bound {b_ms:.6f} ms ({b_by}), {b_ms / ms:.1%} of it")
-    # the ll row staged in shared memory (bulk copy) against read in place,
-    # five times each, interleaved: median [min, max]
-    reps = {st: [] for st in fs.EXPAND_STAGES}
-    for _ in range(5):
-        for st, ts in reps.items():
-            ts.append(event_ms(torch, lambda st=st: fs.expand_v4(*ex, stage=st)))
-    log(f"expand_v4 {name}, ll row read 5 x interleaved: " + "; ".join(
-        f"{st} {sorted(ts)[2]:.6f} [{min(ts):.6f}, {max(ts):.6f}] ms"
-        for st, ts in reps.items()))
+    # each way of reading the ll row, five times each, interleaved
+    log(f"expand_v4 {name}, ll row read 5 x interleaved: " + stage_times(
+        torch, {st: lambda st=st: fs.expand_v4(*ex, stage=st) for st in fs.EXPAND_STAGES}))
     return out
 
 
@@ -3170,10 +3261,13 @@ def stripe_kernels(torch, dec, mesh, fr, llt):
     B = llt.shape[0]
     ex = (dec.em_pack, fr["state"], fr["cost"], llt, dec.params.acoustic_scale, dec.S,
           dec.M, dec.mbits, None)
-    got = fs.expand_v4(*ex, slot_base=i, slot_stride=n)
     want = fs.expand_v4_plain(*ex, slot_base=i, slot_stride=n)
-    torch.cuda.synchronize()
-    err = max(bit_err(torch, a, b) for a, b in zip(got, want))
+    err = 0
+    for stage in (None, *fs.EXPAND_STAGES):  # the kernel's choice, then each forced
+        got = fs.expand_v4(*ex, stage=stage, slot_base=i, slot_stride=n)
+        torch.cuda.synchronize()
+        err = max(err, pool_err(torch, got, want, f"stripe {i} of {n} (ll read: {stage})"))
+    got = fs.expand_v4(*ex, slot_base=i, slot_stride=n)
     pool = viterbi_v3.shard_candidates(dec, mesh, got[0], got[1:], dec.K // n)
     C = min(got[0].shape[1], viterbi_v3.SHARD_SLACK * (dec.K // n))
     thresh = fs.cost_bits(fs.bits_cost(pool[0].amin(1)) + dec.params.beam)
@@ -3197,9 +3291,16 @@ def stripe_kernels(torch, dec, mesh, fr, llt):
             ms = event_ms(torch, lambda: fs.expand_v4(*ex, slot_base=s, slot_stride=n))
             plain_ms = event_ms(torch, lambda: fs.expand_v4_plain(
                 *ex, slot_base=s, slot_stride=n), n=10)
-            nb, ops = expand_work(torch, dec, {k: v[:, s::n] for k, v in fr.items()},
-                                  llt.shape[1])
+            nb, ops, nb_before = expand_work(
+                torch, dec, {k: v[:, s::n] for k, v in fr.items()}, llt.shape[1])
             times[f"expand_stripe{s}"] = (ms, plain_ms, *bound(nb, ops))
+            if s == 0:
+                log(f"expand_v4 stripe 0 of {n}: bound {bound(nb, ops)[0]:.6f} ms in the count "
+                    f"of PR 15, {bound(nb_before, ops)[0]:.6f} ms in the count before; ll row "
+                    "read 5 x interleaved: " + stage_times(torch, {
+                        st: lambda st=st: fs.expand_v4(*ex, stage=st, slot_base=0,
+                                                       slot_stride=n)
+                        for st in fs.EXPAND_STAGES}))
         whole = fs.expand_v4(*ex)
         for name, p in (("select_merged", pool), ("select_whole", whole)):
             a = (*p, *sel[len(pool):])
@@ -3633,7 +3734,9 @@ def phase_mesh(torch, bm, tmp):
             times[pre + k] = t
             log(f"17a {load} {k} (B={B}, K={dec.K}, n=4"
                 f"{', pool ' + str(ks[0]['pool']) if k == 'select_merged' else ''}): "
-                f"bit-equal to plain; kernel {t[0]:.6f} ms, plain {t[1]:.6f} ms, bound "
+                + ("keys bit-equal to plain, nsm and pm where below BIG"
+                   if k.startswith("expand") else "bit-equal to plain")
+                + f"; kernel {t[0]:.6f} ms, plain {t[1]:.6f} ms, bound "
                 f"{t[2]:.6f} ms ({t[3]}), {t[2] / t[0]:.1%} of it"
                 + (f"; stable torch.sort of the pool {t[4]:.6f} ms" if len(t) > 4 else "")
                 + f" ({SMI})")
@@ -3839,6 +3942,8 @@ def main() -> int:
         if "ptxas" in line and ("Compiling entry" in line or "Used" in line
                                 or "spill" in line or "stack frame" in line):
             log("  " + line.strip())
+    log("ptxas spill bytes (stores, loads) per function: " + json.dumps(
+        check_no_spills(_kernels.build_log())))
 
     if sys.argv[1:] == ["--rescoring-only"]:  # phase 12 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:

@@ -40,6 +40,30 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def _same_pool(got, ref, what=""):
+    """The expand kernel's pool against the plain version's under its
+    contract: every key bit-equal, and nsm and pm where the key is below BIG
+    (the kernel leaves them unwritten elsewhere)."""
+    real = ref[0] < frame_step.BIG_I32
+    assert torch.equal(got[0], ref[0]), ("cbits", what)
+    for name, a, b in zip(("nsm", "pm"), got[1:], ref[1:]):
+        assert torch.equal(a[real], b[real]), (name, what)
+    return int((~real).sum())
+
+
+def _overwrite_payload(pool, seed):
+    """The pool with the nsm and pm of every BIG-keyed candidate replaced by
+    seeded garbage; returns (pool, words overwritten a plane)."""
+    cb, nsm, pm = (x.clone() for x in pool)
+    big = cb == frame_step.BIG_I32
+    n = int(big.sum())
+    g = torch.Generator().manual_seed(seed)
+    for plane in (nsm, pm):
+        plane[big] = torch.randint(-(2**31), 2**31, (n,), generator=g,
+                                   dtype=torch.int64).int().to(plane.device)
+    return (cb, nsm, pm), n
+
+
 @pytest.mark.parametrize("dtype,B,P,N", [
     (torch.float32, 32, 6008, 28000),   # acoustic lookup ll[b, pdf]
     (torch.int32, 32, 7000, 7000),      # trailing-silence lookup tsil[b, prev]
@@ -93,6 +117,9 @@ def _synthetic_rows(rng, S, M, P):
     (2, 100, 27, 20000, 0.7),     # P past 2^14: only the pdf range is staged
 ])
 def test_expand_kernel_matches_plain(cuda_device, B, K, M, P, scale):
+    """Each way of reading the ll row (the kernel's choice, staged, in
+    place) against the plain version on the same CUDA tensors: keys
+    everywhere, nsm and pm where the key is below BIG."""
     rng = np.random.default_rng(K + M)
     S = 5000
     em = _synthetic_rows(rng, S, M, P).to(cuda_device)
@@ -105,13 +132,13 @@ def test_expand_kernel_matches_plain(cuda_device, B, K, M, P, scale):
     ll = chunk.to(cuda_device)[:, 1]  # frame 1 read in place: rows strided
     state, cost = state.to(cuda_device), cost.to(cuda_device)
     mbits = max((M - 1).bit_length(), 1)
-    before = expand_v4.launches
-    got = expand_v4(em, state, cost, ll, scale, S, M, mbits)
-    torch.cuda.synchronize()
-    assert expand_v4.launches == before + 1
     ref = expand_v4_plain(em, state, cost, ll, scale, S, M, mbits)
-    for name, a, b in zip(("cbits", "nsm", "pm"), got, ref):
-        assert torch.equal(a, b), name
+    for stage in (None, *frame_step.EXPAND_STAGES):
+        before = expand_v4.launches
+        got = expand_v4(em, state, cost, ll, scale, S, M, mbits, stage=stage)
+        torch.cuda.synchronize()
+        assert expand_v4.launches == before + 1
+        assert _same_pool(got, ref, stage) > 0  # dead tokens and padding arcs keyed BIG
 
 
 def _synthetic_exact3_rows(rng, S, M, P):
@@ -141,8 +168,9 @@ def _synthetic_exact3_rows(rng, S, M, P):
 ])
 def test_expand_kernel_exact3_matches_plain(cuda_device, B, K, M, P, scale):
     """The exact3 rows (pdf ids of 15 bits or more), each way of reading
-    the ll row (the kernel's choice, staged, in place), against the plain
-    version on the same CUDA tensors."""
+    the ll row (the kernel's choice, staged, in place), against
+    the plain version on the same CUDA tensors, under the pool's contract
+    (`_same_pool`)."""
     rng = np.random.default_rng(K + M + P)
     S = 5000
     em, pdf_bits = _synthetic_exact3_rows(rng, S, M, P)
@@ -162,8 +190,7 @@ def test_expand_kernel_exact3_matches_plain(cuda_device, B, K, M, P, scale):
         got = expand_v4(em, state, cost, ll, scale, S, M, mbits, pdf_bits, stage=stage)
         torch.cuda.synchronize()
         assert expand_v4.launches == before + 1
-        for name, a, b in zip(("cbits", "nsm", "pm"), got, ref):
-            assert torch.equal(a, b), (name, stage)
+        assert _same_pool(got, ref, stage) > 0
 
 
 @pytest.mark.parametrize("rows,B,K,M,n", [
@@ -176,8 +203,8 @@ def test_expand_kernel_exact3_matches_plain(cuda_device, B, K, M, P, scale):
 def test_expand_kernel_stripes_match_plain(cuda_device, rows, B, K, M, n):
     """expand_v4 over each stripe i of n of the frontier (slot_base i,
     slot_stride n, read in place) against its plain version on the same
-    CUDA tensors, each way of reading the ll row; pm carries the global
-    slot."""
+    CUDA tensors, each way of reading the ll row, under the pool's
+    contract (`_same_pool`); pm carries the global slot."""
     rng = np.random.default_rng(K + M + n)
     S, P = 5000, 6008
     if rows == "packed16":
@@ -203,8 +230,7 @@ def test_expand_kernel_stripes_match_plain(cuda_device, rows, B, K, M, n):
                             slot_base=i, slot_stride=n)
             torch.cuda.synchronize()
             assert expand_v4.launches == before + 1
-            for name, a, b in zip(("cbits", "nsm", "pm"), got, ref):
-                assert torch.equal(a, b), (name, i, stage)
+            assert _same_pool(got, ref, (i, stage)) > 0
 
 
 @pytest.fixture(scope="module")
@@ -257,6 +283,42 @@ def test_select_kernel_matches_plain_real_frames(cuda_device, realistic_graph, B
                      dec.S, dec.M, dec.mbits)
     _same_selection(cuda_device, pool, fr, valid, 10.0, 6.0, dec.S, dec.mbits, dec.K2, dec.R)
     assert (dec.R > dec.K) == (K < 2048)
+
+
+@pytest.mark.parametrize("B,K,flat", [(4, 256, False), (4, 2048, False), (32, 1024, True)])
+def test_select_kernel_reads_no_payload_of_big_keys(cuda_device, realistic_graph, B, K, flat):
+    """select_v4 on the expand kernel's pool with the nsm and pm of every
+    BIG-keyed candidate overwritten by seeded garbage gives the frontier and
+    records of select_v4_plain on the plain version's pool, bit for bit: a
+    masked channel, an empty one, +inf costs; flat: every channel at
+    max-active."""
+    dec = BatchViterbi(realistic_graph, DecodeParams(beam=10.0, max_active=K, lattice_beam=6.0),
+                       silence_pdfs=np.array([0, 1]), optimize_graph=True,
+                       device=cuda_device)
+    gen = torch.Generator().manual_seed(K + B)
+    T = 16 if flat else 4
+    ll = torch.randn((B, T, 64), generator=gen) * (0.02 if flat else 1.0)
+    ll[: B // 2] *= 0.2
+    ll[0, -1, ::5] = float("-inf")
+    ll[2, -1] = float("-inf")
+    fr, _, _, _ = dec.decode_chunk(dec.init_frontier(B), ll[:, :-1].to(cuda_device))
+    fr["state"][-1], fr["cost"][-1] = dec.S, float("inf")
+    valid = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    valid[1] = False
+    ex = (dec.em_pack, fr["state"], fr["cost"], ll[:, -1].to(cuda_device), 1.0, dec.S, dec.M,
+          dec.mbits)
+    ref = expand_v4_plain(*ex)
+    sel = (fr, valid, 10.0, 6.0, dec.S, dec.mbits, dec.K2, dec.R)
+    pf, prec = select_v4_plain(*ref, *sel, dec.record_buffers((B,)))
+    for stage in frame_step.EXPAND_STAGES:
+        pool, n = _overwrite_payload(expand_v4(*ex, stage=stage), seed=K + len(stage))
+        assert n > 0
+        kf, krec = select_v4(*pool, *sel, dec.record_buffers((B,)))
+        torch.cuda.synchronize()
+        for what, got, want in (("frontier", kf, pf), ("records", krec, prec)):
+            for k in got:
+                assert torch.equal(_bits(got[k]), _bits(want[k])), (stage, what, k)
+    assert (torch.isfinite(fr["cost"]).sum(1).max() == dec.K) == flat
 
 
 @pytest.mark.parametrize("K,n", [(256, 4), (2048, 2)])
@@ -622,25 +684,42 @@ def test_kaldi_dir_with_ivectors_on_card(cuda_device, tmp_path):
     assert words(outs) == words(cpu_outs)
 
 
-@pytest.mark.parametrize("dtype,B,P,N,top", [
-    (torch.float32, 32, 6008, 56000, 0),           # v3 acoustic lookup ll[b, pdf], M = 8
-    (torch.int32, 32, 7000, 7000, 1 << 22),        # tsil[b, prev], em level and eps rounds
-    (torch.int32, 32, 7000, 1024, (1 << 30) - 1),  # state[b, src] of an eps round
-    (torch.int32, 1, 7000, 1024, (1 << 30) - 1),   # the same in a B = 1 stream
+@pytest.mark.parametrize("dtype,B,P,N,top,offset", [
+    (torch.float32, 32, 6008, 56000, 0, 0),           # v3 acoustic lookup ll[b, pdf], M = 8
+    (torch.int32, 32, 7000, 7000, 1 << 22, 0),        # tsil[b, prev], em level and eps rounds
+    (torch.int32, 32, 7000, 1024, (1 << 30) - 1, 0),  # state[b, src] of an eps round
+    (torch.int32, 1, 7000, 1024, (1 << 30) - 1, 0),   # the same in a B = 1 stream
+    (torch.float32, 1, 6008, 4000, 0, 0),             # one tile
+    (torch.float32, 32, 6008, 40000, 0, 0),           # 10 tiles: more than a cluster holds
+    (torch.float32, 3, 6010, 9001, 0, 0),             # N and P not multiples of 4
+    (torch.int32, 2, 7001, 9003, 1 << 22, 1),         # idx and out off 16-byte alignment
+    (torch.float32, 2, 64000, 70001, 0, 0),           # row above the shared-memory opt-in
 ])
-def test_gather_kernel_at_v3_shapes(cuda_device, dtype, B, P, N, top):
+def test_gather_kernel_at_v3_shapes(cuda_device, dtype, B, P, N, top, offset):
+    """Every way of reading the table row (the kernel's choice, in place,
+    staged, multicast over a cluster of a channel's tiles) bit-equal to the
+    plain version, with out-of-range indices giving 0."""
+    from vosk_tpu_torch.ops.gather import GATHER_STAGES
+
     g = torch.Generator().manual_seed(N)
     if dtype == torch.float32:
         table = torch.randn((B, P), generator=g)
     else:
         table = torch.randint(0, top, (B, P), generator=g, dtype=torch.int32)
     idx = torch.randint(0, P, (B, N), generator=g, dtype=torch.int32)
-    table, idx = table.to(cuda_device), idx.to(cuda_device)
-    before = gather_rows.launches
-    got = gather_rows(table, idx)
-    torch.cuda.synchronize()
-    assert gather_rows.launches == before + 1
-    assert torch.equal(_bits(got), _bits(gather_rows_plain(table, idx)))
+    idx[0, 0], idx[0, 1], idx[-1, -1], idx[-1, N // 2] = P - 1, P, -1, -(2**31)
+    table = table.to(cuda_device)
+    # offset: a contiguous view one element into its storage
+    idx = torch.cat([torch.zeros(offset, dtype=torch.int32), idx.flatten()]).to(
+        cuda_device)[offset:].view(B, N)
+    ref = gather_rows_plain(table, idx)
+    assert ref[0, 1].item() == 0 and ref[-1, -1].item() == 0
+    for stage in (None, *GATHER_STAGES):
+        before = gather_rows.launches
+        got = gather_rows(table, idx, stage=stage)
+        torch.cuda.synchronize()
+        assert gather_rows.launches == before + 1
+        assert torch.equal(_bits(got), _bits(ref)), stage
 
 
 def _label_eps(graph, share, seed):

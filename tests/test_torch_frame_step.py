@@ -11,6 +11,8 @@ which is how the select_v4 kernel computes it, and held to the JAX
 function on tie-heavy synthetic pools.  tests/test_torch_cuda.py holds the
 kernels to these plain versions on the card.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,18 +191,25 @@ def _same(a, b, what):
         _eq(a[1][k], b[1][k], f"{what} records[{k}]")
 
 
-def _select_case(g, K, B, seed):
-    jd, td = _decoders(g, K)
-    ll = _scores(jd.graph, 64, B, 5, seed)
-    fr = _real_frontier(td, ll[:, :4])
+def _select_inputs(td, ll):
+    """(frontier, frame, valid) from scores ll [B, T, P]: the frontier after
+    T - 1 frames, then a dead channel, +inf costs and a masked channel."""
+    B = ll.shape[0]
+    fr = _real_frontier(td, ll[:, :-1])
     fr["tsil"][:, ::3] |= 5  # trailing-silence counts to carry
     # channel B-1 empty: a dead frontier, every candidate keyed BIG
     fr["state"][-1], fr["cost"][-1] = td.S, float("inf")
-    frame = ll[:, 4].copy()
+    frame = ll[:, -1].copy()
     frame[0, ::5] = -np.inf  # +inf costs among live candidates
     frame[2, :] = -np.inf  # every candidate of a live channel at +inf
     valid = np.ones(B, bool)
     valid[1] = False  # a masked channel
+    return fr, frame, valid
+
+
+def _select_case(g, K, B, seed):
+    jd, td = _decoders(g, K)
+    fr, frame, valid = _select_inputs(td, _scores(jd.graph, 64, B, 5, seed))
     pool = _pool(td, fr, frame)
     j = _jax_select(jd, fr, pool, valid)
     _same(_port_select(td, fr, pool, valid), j, "plain")
@@ -217,6 +226,81 @@ def test_select_plain_bit_equal_r_above_k(realistic):
 def test_select_plain_bit_equal_r_equal_k(realistic):
     td = _select_case(realistic, 2048, B=4, seed=6)
     assert td.R == td.K == 2048
+
+
+def _exact3_graph(g, top=20_000, seed=11):
+    """g with its 64 pdf ids sent to distinct seeded ids below `top` (top - 1
+    among them), so that the v4 step runs on exact3 rows.  Returns (graph,
+    map)."""
+    rng = np.random.default_rng(seed)
+    pmap = np.append(np.sort(rng.choice(top - 1, 63, replace=False)), top - 1).astype(np.int32)
+    return dataclasses.replace(g, em_pdf=pmap[g.em_pdf]), pmap
+
+
+def _overwrite_payload(pool, seed):
+    """The pool with the nsm and pm of every candidate keyed BIG replaced by
+    seeded garbage: the words the expand kernel leaves unwritten (nsm and pm
+    are defined where cbits < BIG).  Returns (pool, words overwritten a
+    plane)."""
+    cb, nsm, pm = (x.clone() for x in pool)
+    big = cb == frame_step.BIG_I32
+    n = int(big.sum())
+    rng = np.random.default_rng(seed)
+    for plane in (nsm, pm):
+        plane[big] = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    return (cb, nsm, pm), n
+
+
+PAYLOAD_CASES = {  # name: (graph fixture, K, P, frames, the scores' scale)
+    "light_r_above_k": ("realistic", 256, 64, 5, None),
+    "light_r_equal_k": ("realistic", 2048, 64, 5, None),
+    "loaded": ("realistic", 256, 64, 16, 0.02),  # live channels at max-active
+    "wide_rows": ("wide", 16, 6, 5, None),
+    "exact3": ("realistic", 256, 20_000, 5, None),
+}
+
+
+@pytest.mark.parametrize("case", list(PAYLOAD_CASES))
+def test_select_plain_reads_no_payload_of_big_keys(request, case):
+    """The expand kernel writes nsm and pm only where cbits < BIG.  With the
+    payload of every BIG-keyed candidate of expand_v4_plain's pool
+    overwritten by seeded garbage, select_v4_plain must give what the JAX
+    package's jitted pool sort + `_select_v4` gives on the clean pool, bit
+    for bit, on _select_case's frames (a dead channel, padded arcs, +inf
+    costs, a masked channel), light and loaded, on wide rows (M > 4) and on
+    exact3 rows."""
+    fixture, K, P, T, scale = PAYLOAD_CASES[case]
+    g = base = request.getfixturevalue(fixture)
+    pmap = None
+    if case == "exact3":
+        g, pmap = _exact3_graph(base)
+    jd, td = _decoders(g, K, padded_max_out=64 if fixture == "wide" else 16)
+    B = 4
+    if pmap is None:
+        ll = _scores(jd.graph, P, B, T, seed=K + P)
+    else:  # plausible scores at the mapped pdf ids, seeded noise elsewhere
+        ll = (np.random.default_rng(K).standard_normal((B, T, P)) - 12.0).astype(np.float32)
+        ll[:, :, pmap] = _scores(base, 64, B, T, seed=K)
+    if scale is not None:
+        ll *= scale
+    fr, frame, valid = _select_inputs(td, ll)
+    pool = expand_v4_plain(td.em_pack, fr["state"], fr["cost"], torch.from_numpy(frame),
+                           td.params.acoustic_scale, td.S, td.M, td.mbits,
+                           td.pdf_bits if td.pack == "exact3" else None)
+    want = _jax_select(jd, fr, pool, valid)
+    garbled, n = _overwrite_payload(pool, seed=len(case))
+    assert n > 0 and not torch.equal(garbled[1], pool[1]) and not torch.equal(garbled[2], pool[2])
+    got = select_v4_plain(*garbled, fr, torch.from_numpy(valid), td.params.beam,
+                          td.params.lattice_beam, td.S, td.mbits, td.K2, td.R,
+                          td.record_buffers((B,)))
+    _same(({k: v.numpy() for k, v in got[0].items()}, {k: v.numpy() for k, v in got[1].items()}),
+          want, case)
+    assert td.M == (27 if fixture == "wide" else 4)
+    assert td.pack == ("exact3" if pmap is not None else "packed16")
+    live = (fr["state"] != td.S).sum(1)
+    assert (live[0] == td.K) == (case == "loaded")
+    # the garbage reached candidates of live channels, not only the dead one
+    assert (pool[0][:-1] == frame_step.BIG_I32).any()
 
 
 # ------------------------------------------------ select in numpy, no sort
@@ -400,7 +484,7 @@ def test_cpu_tensors_use_plain_and_count_no_launch(realistic):
         _eq(rp[k].numpy(), rk[k].numpy(), k)
 
 
-@pytest.mark.parametrize("bad", ["ll_dtype", "ll_cols", "state_dtype", "em_cols"])
+@pytest.mark.parametrize("bad", ["ll_dtype", "ll_cols", "state_dtype", "em_cols", "stage"])
 def test_expand_wrapper_rejects(realistic, bad):
     _, td = _decoders(realistic, 256)
     fr = td.init_frontier(2)
@@ -412,8 +496,10 @@ def test_expand_wrapper_rejects(realistic, bad):
         args["ll"] = torch.zeros((64, 2)).t()
     elif bad == "state_dtype":
         args["tok_state"] = args["tok_state"].long()
-    else:
+    elif bad == "em_cols":
         args["em_pack"] = args["em_pack"][:, :3]
+    else:
+        args["stage"] = "staged"  # the gather's name; expand's is "bulk"
     with pytest.raises((TypeError, ValueError)):
         expand_v4(**args, acoustic_scale=1.0, S=td.S, M=td.M, mbits=td.mbits)
 
@@ -499,12 +585,15 @@ def test_entry_points_default_to_the_card():
 
 
 def test_kernel_library_keyed_by_every_source(tmp_path, monkeypatch):
-    """One library for every csrc/*.cu: its name changes with any source."""
+    """One library for every csrc/*.cu: its name changes with any source,
+    and with any header they share (csrc/*.cuh), which nvcc is not given
+    as a source."""
     from vosk_tpu_torch.ops import _kernels
 
-    names = [p.name for p in _kernels.sources()]
-    assert {"frame_step.cu", "gather.cu"} <= set(names)
-    for p in _kernels.sources():
+    names = [p.name for p in _kernels.sources() + _kernels.headers()]
+    assert {"frame_step.cu", "gather.cu", "stage.cuh"} <= set(names)
+    assert all(p.suffix == ".cu" for p in _kernels.sources())
+    for p in _kernels.sources() + _kernels.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_kernels, "_CSRC", tmp_path)
     first = _kernels.library_path()

@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from vosk_tpu.ops.gather import _pallas_gather, onehot_gather, onehot_gather_i32
-from vosk_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from vosk_tpu_torch.ops.gather import GATHER_STAGES, gather_rows, gather_rows_plain
 
 
 def _port(table, idx):
@@ -67,7 +67,20 @@ def test_cpu_uses_plain_and_counts_no_launch():
     assert gather_rows.launches == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "idx_dtype", "shape", "contig", "rows"])
+@pytest.mark.parametrize("stage", [None, *GATHER_STAGES])
+def test_stage_choice_leaves_the_result(stage):
+    """`stage` only picks how the kernel reads the table row on the card
+    (in place, staged, multicast); on CPU tensors every choice is the plain
+    version, bit-equal to onehot_gather."""
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((3, 301)).astype(np.float32)
+    idx = rng.integers(-2, 303, (3, 4099)).astype(np.int32)
+    got = gather_rows(torch.from_numpy(table), torch.from_numpy(idx), stage=stage).numpy()
+    np.testing.assert_array_equal(got, np.asarray(onehot_gather(jnp.asarray(table),
+                                                                jnp.asarray(idx))))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "idx_dtype", "shape", "contig", "rows", "stage"])
 def test_wrapper_rejects(bad):
     t = torch.zeros((2, 8), dtype=torch.float32)
     i = torch.zeros((2, 4), dtype=torch.int32)
@@ -79,7 +92,7 @@ def test_wrapper_rejects(bad):
         t = t[0]
     elif bad == "contig":
         i = torch.zeros((4, 2), dtype=torch.int32).t()
-    else:
+    elif bad == "rows":
         i = torch.zeros((3, 4), dtype=torch.int32)
     with pytest.raises((TypeError, ValueError)):
-        gather_rows(t, i)
+        gather_rows(t, i, stage="bulk" if bad == "stage" else None)

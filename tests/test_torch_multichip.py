@@ -14,7 +14,9 @@ imported inside the test functions).
       rows, bit for bit;
   (b) the sharded v4 decode over model = 4 against JAX's on mesh (2, 4) and
       against the unsharded decode: best, best-final and the frontier
-      bit-equal, tracebacks equal to the unsharded decode's;
+      bit-equal, tracebacks equal to the unsharded decode's; again with the
+      nsm and pm of every BIG key of each merged pool overwritten by seeded
+      garbage (the expand kernel leaves them unwritten);
   (c) the JAX package's v4 sharded records come back [B, T, K] and its
       traceback of channel 2 reads the wrong rows; the port's are [T, B, K]
       and agree;
@@ -36,6 +38,7 @@ imported inside the test functions).
       nothing), against JAX's pipeline on the same mesh and the port's
       unsharded one.
 """
+import functools
 import sys
 
 import numpy as np
@@ -123,15 +126,39 @@ def _tracebacks(dec, recs, fr, B):
     return [dec.traceback_with_frames([recs], fr, b, use_final=False) for b in range(B)]
 
 
+def _overwriting_select(counts, cbits, nsm, pm_, *args, **kw):
+    """select_v4_plain on the pool with the nsm and pm of every BIG-keyed
+    candidate replaced by seeded garbage: the words the expand kernel
+    leaves unwritten (nsm and pm are defined where cbits < BIG).  Appends
+    the words replaced a plane to `counts`."""
+    from vosk_tpu_torch.ops.frame_step import BIG_I32, select_v4_plain
+
+    big = cbits == BIG_I32
+    n = int(big.sum())
+    rng = np.random.default_rng(len(counts))
+    nsm, pm_ = nsm.clone(), pm_.clone()
+    for plane in (nsm, pm_):
+        plane[big] = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    counts.append(n)
+    return select_v4_plain(cbits, nsm, pm_, *args, **kw)
+
+
 def _sharded_rank(mesh):
     """(b)-(d), (g) at model = 4: the v4 and v3 decodes of both score sets,
-    sharded and not."""
+    sharded and not; and the v4 decodes again with the payload of every
+    BIG key of each merged pool overwritten ("v4_overwritten")."""
+    from vosk_tpu_torch.ops.frame_step import StepOps
+
     model = _model()
     out = {"jax_loaded": "jax" in sys.modules, "coord": mesh.get_coordinate(),
            "decisions": {c: {k: pm.am_param_sharding(mesh, k, s)
-                             for k, s in shapes.items()} for c, shapes in _am_shapes().items()}}
-    for fs in ("v4", "v3"):
-        dec = _decoder(model, fs)
+                             for k, s in shapes.items()} for c, shapes in _am_shapes().items()},
+           "overwritten": []}
+    for fs in ("v4", "v3", "v4_overwritten"):
+        dec = _decoder(model, fs[:2])
+        if fs == "v4_overwritten":
+            dec.step_ops = StepOps(expand_v4_plain,
+                                   functools.partial(_overwriting_select, out["overwritten"]))
         for kind in SCORES:
             ll = torch.from_numpy(_shard_scores(kind))
             B = ll.shape[0]
@@ -363,7 +390,7 @@ def test_expand_stripes_match_jax(jmodel, pack):
 
 
 @pytest.mark.parametrize("kind", SCORES)
-@pytest.mark.parametrize("frame_step", ["v4", "v3"])
+@pytest.mark.parametrize("frame_step", ["v4", "v3", "v4_overwritten"])
 def test_sharded_decode_matches_jax_and_unsharded(sharded, jax_runs, frame_step, kind):
     """(b), (d) The port's sharded decode over model = 4: every rank returns
     the same, and best, best-final, the frontier and every record plane are
@@ -371,8 +398,16 @@ def test_sharded_decode_matches_jax_and_unsharded(sharded, jax_runs, frame_step,
     which the source swaps).  Against the unsharded decode: on the sparse
     scores, best, best-final, the frontier and the winners' record planes
     bit-equal; on the full frontiers, best and best-final.  The traceback
-    of every channel equals the unsharded decode's."""
+    of every channel equals the unsharded decode's.  "v4_overwritten": the
+    same v4 decode with the nsm and pm of every BIG key of each merged pool
+    overwritten by seeded garbage before the selection (the expand kernel
+    leaves them unwritten): JAX's decode on clean pools all the same."""
+    if frame_step == "v4_overwritten":
+        assert all(n > 0 for r in sharded for n in r["overwritten"])
+        # a selection a frame, sharded and unsharded, over both score sets
+        assert all(len(r["overwritten"]) == 2 * (T_SHARD + 16) for r in sharded)
     r0 = sharded[0][frame_step, kind]
+    frame_step = frame_step[:2]
     for r in sharded[1:]:
         for a, b in zip(r[frame_step, kind]["sharded"], r0["sharded"]):
             for k in (a if isinstance(a, dict) else {"": a}):

@@ -14,15 +14,25 @@
 // versions and wrappers: vosk_tpu_torch/ops/frame_step.py.
 //
 // What bounds them.  Expand: bytes.  It does no more than a few integer
-// and one fused multiply-add per element and moves about 20.5 MB per frame
-// at B = 32, K = 7000, M = 4 with every token live (arc rows 7.2 MB, three
-// [B, K*M] outputs 10.8 MB).  Select needs only the pool's keys (4 bytes a
-// candidate, 3.6 MB at B = 32), the payload of the candidates within reach
-// of the beams and its outputs, but its time is latency: a chain of
-// dependent steps per channel (cuts, dedup, sorts), and at B = 1 the two
-// launches and that chain are all of it (PERF.md).  The source's three
-// stable sorts of the whole pool and their payload gathers moved many
-// times the bytes, in about a dozen launches.
+// and one fused multiply-add per element.  What it must move: the token
+// words, the live tokens' arc rows and the ll words they reach, the key of
+// every candidate (4 bytes) and the next state and pm word of each real
+// arc of a live token (8 bytes): about 5.2 MB per frame at B = 32, K =
+// 7000, M = 4 with 10,048 live tokens, about 12 MB with every token live.
+// Select needs only the pool's keys (4 bytes a candidate, 3.6 MB at B =
+// 32), the payload of the candidates within reach of the beams and its
+// outputs, but its time is latency: a chain of dependent steps per channel
+// (cuts, dedup, sorts), and at B = 1 the two launches and that chain are
+// all of it (PERF.md).  The source's three stable sorts of the whole pool
+// and their payload gathers moved many times the bytes, in about a dozen
+// launches.
+//
+// The pool's contract: cbits holds every candidate's key; nsm and pm are
+// defined where cbits < BIG.  Select never reads the payload of a BIG key
+// (pass 1's range stops below BIG, and pass 2 sees only the list), so
+// expand leaves it unwritten: a dead token's candidates and padding arcs
+// (w = +inf) cost 4 bytes, not 12.  A real arc whose cost is +inf (a -inf
+// score) is keyed 0x7F800000, below BIG, and carries its payload.
 //
 // What the design does about it:
 //  * one pass each: the indices of the old gather never reach device
@@ -30,26 +40,28 @@
 //    read and the cost keys;
 //  * grids of (element tiles, B), so B = 32 gives ~900 blocks of 256
 //    threads (the old gather ran 7 or 2 blocks per channel);
-//  * expand, while the grid has no more blocks than the card has SMs
-//    (B = 1) and the row is at most 2^14 words: one thread of each block
-//    starts a 1-D bulk copy (TMA, cp.async.bulk) of the channel's ll row
-//    into shared memory at block start, completing on an mbarrier; the
-//    block loads its tokens' states, costs and arc rows while the copy is
-//    in flight and waits only before the lookups.  The words a lookup can
-//    reach are staged: min(P, 2^14) for packed16 rows (pdf ids below
-//    2^14), all P for exact3 rows.  A longer row (exact3 above 64 KB) is
-//    read in place by default: every block would copy the whole row for a
-//    few lookups (at B = 1, P = 20,000 the 80 KB stage took 0.003448 ms
-//    against 0.003222 in place, NVIDIA H100 80GB HBM3, 700 W).  Asked for,
-//    the stage takes rows up to the block's opt-in shared memory (227 KB
-//    on H100, P up to about 58,000).  A pdf >= P reads 0 either way, as
-//    the source's onehot_gather gives it.  With more blocks than SMs
-//    (B = 32, or wide rows) the lookups read the row in place through the
-//    read-only path: blocks of a channel then share an SM's L1, and
-//    staging would copy the row once per block (chip_smoke.py times both
-//    choices at each shape).  A row whose start or length is not a
-//    multiple of 16 bytes, which the bulk copy cannot take, is read in
-//    place too;
+//  * expand reads the channel's ll row one of two ways (stage_req; the
+//    kernel's own choice is by shape, from the card's times, PERF.md):
+//     - staged: one thread of each block starts a 1-D bulk copy (TMA,
+//       cp.async.bulk) of the row into shared memory at block start,
+//       completing on an mbarrier; the block loads its tokens' states,
+//       costs and arc rows while the copy is in flight and waits only
+//       before the lookups (csrc/stage.cuh).  It pays only while every
+//       block has an SM to itself and the channel spans many blocks (B = 1
+//       over the whole frontier);
+//     - in place, through the read-only path: with more blocks than SMs,
+//       blocks of a channel share an SM's L1, and each lookup reads only
+//       its sector.
+//    The row multicast over a thread-block cluster of a channel's tiles
+//    (stage.cuh, as the gather kernel uses it) was measured and left out:
+//    it won only on a frame with every token live (by 2 %), whose shape is
+//    the light frame's, where it lost by 41 % (PERF.md, PR 15).  The words
+//    a lookup can reach are staged: min(P, 2^14) for packed16 rows (pdf
+//    ids below 2^14), all P for exact3 rows, up to the block's opt-in
+//    shared memory (227 KB on H100, P up to about 58,000).  A pdf >= P
+//    reads 0 either way, as the source's onehot_gather gives it.  A row
+//    whose start or length is not a multiple of 16 bytes, which the bulk
+//    copy cannot take, is read in place;
 //  * expand reads either row layout, a template parameter: packed16 rows
 //    [S+1, 2M] (f16 weight, sil and a 14-bit pdf in one word, then the
 //    next state) or exact3 rows [S+1, 3M] (f32 weight bits, next state,
@@ -57,10 +69,11 @@
 //    source's v4 step on exact3 rows);
 //  * expand at M = 4: one thread per token reads its 32-byte packed16 row
 //    as two 16-byte loads (an exact3 row: 48 bytes, three loads) and
-//    writes its four candidates as 16-byte stores; other M: one thread per
-//    candidate;
-//  * expand: a dead token (state S) reads no row and writes (BIG, S, prevm)
-//    directly: row S is all padding (w = +inf, next = S, sil = 0);
+//    writes its four keys as one 16-byte store, and its four next states
+//    and pm words as two more where any of its arcs is real; other M: four
+//    candidates a thread, all their loads issued before the first lookup;
+//  * expand: a dead token (state S) reads no row and writes only BIG keys:
+//    row S is all padding (w = +inf, next = S, sil = 0);
 //  * expand over a stripe, for the sharded search (the source's
 //    _frame_step_v4_sharded, :1494-1517): a launch takes the frontier's
 //    slots base, base + stride, ... and reads their state and cost words in
@@ -152,11 +165,14 @@
 
 #include <cooperative_groups.h>
 
+#include "stage.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
+constexpr int kCandPer = 4;                    // candidates a thread of expand's any-M path
 constexpr int kScanThreads = 256;             // select_v4 pass 1
 constexpr int kScanPer = 16;                   // candidates per pass-1 thread
 constexpr int kTile = kScanThreads * kScanPer;  // candidates per pass-1 block
@@ -173,7 +189,6 @@ constexpr int kWalkPer = 4;                    // list entries per thread per st
 constexpr int kInbox = static_cast<int>(kHistBytes / 8);  // entries of a CTA's table inbox
 constexpr int kGroup = 128;                    // keys of one first digit ranked by counting
 static_assert(kBins == 2 * kSelThreads, "cut_advance sums two bins a thread");
-constexpr int kMaxDevices = 64;
 constexpr uint64_t kNone = ~0ull;              // sorts after every real sort key
 constexpr int32_t kNoKey = -2147483647 - 1;
 constexpr int32_t kBig = 0x7FFFFFFF;
@@ -185,8 +200,6 @@ constexpr int32_t kPmMask = (1 << 29) - 1;
 constexpr int32_t kSpeech = 1 << 21;
 constexpr int32_t kTsilMask = (1 << 21) - 1;
 constexpr int kPdfWords = 1 << 14;             // packed16: pdf ids below 2^14
-constexpr int kStageReserve = 64;              // the expand kernel's static shared memory
-constexpr int kStaticSmemLimit = 48 * 1024;
 
 // Pass 2's dynamic shared memory: the histograms, then (shared-memory
 // variant) this CTA's table slots (values, keys) and its bucket of cap keys,
@@ -214,58 +227,27 @@ __device__ __forceinline__ float key_cost(int32_t k) {
       k < 0 ? static_cast<int32_t>(0x80000000u - static_cast<uint32_t>(k)) : k);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Stage n words of src into row by one bulk copy completing on bar.  Every
-// thread of the block calls both halves.
-__device__ __forceinline__ void stage_begin(float* row, uint64_t* bar, const float* src,
-                                            int n) {
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0 && n > 0) {
-    const uint32_t bytes = static_cast<uint32_t>(n) * 4u;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                     smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(row)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void stage_wait(uint64_t* bar, int n) {
-  if (n == 0) return;
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(0u)
-        : "memory");
-  } while (!done);
-}
+using vt_stage::allow_smem;
+using vt_stage::cluster_config;
+using vt_stage::kMaxDevices;
+using vt_stage::kStageReserve;
+using vt_stage::kStaticSmemLimit;
+using vt_stage::num_sms;
+using vt_stage::stage_begin;
+using vt_stage::stage_smem_limit;
+using vt_stage::stage_wait;
 
 // One candidate of a live token: (cost key, next state, pm word).  p1 is
 // the packed16 word (kPlanes 2; meta unused), or the exact3 f32 weight bits
 // with meta = sil << pdf_bits | pdf (kPlanes 3).  row is the ll row in
 // shared memory when kStaged, else in global memory; n_ll words of it are
-// readable (a pdf at or above reads 0).
+// readable (a pdf at or above reads 0).  A padding arc (w = +inf) gets the
+// key BIG; its ns and pm are then not stored.
 template <int kPlanes, bool kStaged>
 __device__ __forceinline__ void score(int32_t p1, int32_t nsf, int32_t meta, float tok_cost,
                                       const float* row, int n_ll, int pdf_bits,
-                                      float neg_scale, int32_t prevm, int S, int32_t& cb,
-                                      int32_t& ns, int32_t& pm) {
+                                      float neg_scale, int32_t prevm, int32_t& cb, int32_t& ns,
+                                      int32_t& pm) {
   float w;
   int32_t sil;
   int pdf;
@@ -281,13 +263,11 @@ __device__ __forceinline__ void score(int32_t p1, int32_t nsf, int32_t meta, flo
     pdf = static_cast<int>(u & ((1u << pdf_bits) - 1u));
   }
   pm = prevm + (sil << 30);
+  ns = nsf & kNsMask;
+  cb = kBig;
   if (isfinite(w)) {
     const float ac = pdf < n_ll ? (kStaged ? row[pdf] : __ldg(row + pdf)) : 0.0f;
     cb = cost_key(__fmaf_rn(neg_scale, ac, __fadd_rn(tok_cost, w)));
-    ns = nsf & kNsMask;
-  } else {
-    cb = kBig;
-    ns = S;
   }
 }
 
@@ -302,6 +282,8 @@ struct Stripe {
   int stride;
 };
 
+// kStaged: the ll row comes into shared memory by a bulk copy.  Writes
+// the key of every candidate; nsm and pm only where the key is below BIG.
 template <int kPlanes, bool kVec4, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict__ tok_state,
@@ -335,53 +317,70 @@ expand_v4_kernel(const int32_t* __restrict__ em_pack, const int32_t* __restrict_
     if (kStaged) stage_wait(&bar, n_ll);
     if (!in) return;
     const int32_t pm0 = slot << mbits;
-    int4 oc, on, op;
-    if (s == S) {
-      oc = make_int4(kBig, kBig, kBig, kBig);
-      on = make_int4(S, S, S, S);
-      op = make_int4(pm0, pm0 | 1, pm0 | 2, pm0 | 3);
-    } else {
-      score<kPlanes, kStaged>(p1.x, nx.x, mt.x, tc, row, n_ll, pdf_bits, neg_scale, pm0, S,
-                              oc.x, on.x, op.x);
-      score<kPlanes, kStaged>(p1.y, nx.y, mt.y, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 1, S,
+    int4 oc = make_int4(kBig, kBig, kBig, kBig), on = p1, op = p1;
+    if (s != S) {  // a dead token (state S) has no arc: row S is all padding
+      score<kPlanes, kStaged>(p1.x, nx.x, mt.x, tc, row, n_ll, pdf_bits, neg_scale, pm0, oc.x,
+                              on.x, op.x);
+      score<kPlanes, kStaged>(p1.y, nx.y, mt.y, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 1,
                               oc.y, on.y, op.y);
-      score<kPlanes, kStaged>(p1.z, nx.z, mt.z, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 2, S,
+      score<kPlanes, kStaged>(p1.z, nx.z, mt.z, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 2,
                               oc.z, on.z, op.z);
-      score<kPlanes, kStaged>(p1.w, nx.w, mt.w, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 3, S,
+      score<kPlanes, kStaged>(p1.w, nx.w, mt.w, tc, row, n_ll, pdf_bits, neg_scale, pm0 | 3,
                               oc.w, on.w, op.w);
     }
     const long long e0 = static_cast<long long>(b) * E + 4LL * k;
     *reinterpret_cast<int4*>(cbits + e0) = oc;
-    *reinterpret_cast<int4*>(nsm + e0) = on;
-    *reinterpret_cast<int4*>(pm + e0) = op;
-  } else {  // any M: one thread per candidate e = k*M + m (E < 2^31)
-    const int e = blockIdx.x * kThreads + threadIdx.x;
-    const bool in = e < E;
-    const int k = in ? e / M : 0;
-    const int m = in ? e - k * M : 0;
-    const int slot = stripe.base + k * stripe.stride;
-    const long long tok = static_cast<long long>(b) * stripe.row + slot;
-    const int s = in ? tok_state[tok] : S;
-    float tc = 0.0f;
-    int32_t p1 = 0, nx = 0, mt = 0;
-    if (s != S) {
-      tc = tok_cost[tok];
-      const int32_t* r = em_pack + static_cast<long long>(s) * kPlanes * M;
-      p1 = __ldg(r + m);
-      nx = __ldg(r + M + m);
-      if (kPlanes == 3) mt = __ldg(r + 2 * M + m);
+    if (oc.x != kBig || oc.y != kBig || oc.z != kBig || oc.w != kBig) {  // a real arc
+      *reinterpret_cast<int4*>(nsm + e0) = on;
+      *reinterpret_cast<int4*>(pm + e0) = op;
+    }
+  } else {  // any M: kCandPer candidates a thread, e = k*M + m (E < 2^31)
+    // each thread's candidates lie kThreads apart (coalesced), and every
+    // load is issued before the first lookup: a wide-row frame (1.86 M
+    // candidates at M = 266) is then a few waves of blocks, not dozens of
+    // waves each waiting out the state -> row chain
+    const long long e0 = static_cast<long long>(blockIdx.x) * kThreads * kCandPer + threadIdx.x;
+    int s[kCandPer], m[kCandPer], slot[kCandPer];
+    float tc[kCandPer];
+    int32_t p1[kCandPer], nx[kCandPer], mt[kCandPer];
+#pragma unroll
+    for (int i = 0; i < kCandPer; ++i) {
+      const long long ee = e0 + static_cast<long long>(i) * kThreads;
+      const int e = ee < E ? static_cast<int>(ee) : 0;
+      const int k = e / M;
+      m[i] = e - k * M;
+      slot[i] = stripe.base + k * stripe.stride;
+      s[i] = ee < E ? tok_state[static_cast<long long>(b) * stripe.row + slot[i]] : S;
+    }
+#pragma unroll
+    for (int i = 0; i < kCandPer; ++i) {
+      tc[i] = 0.0f;
+      p1[i] = nx[i] = mt[i] = 0;
+      if (s[i] != S) {
+        tc[i] = tok_cost[static_cast<long long>(b) * stripe.row + slot[i]];
+        const int32_t* r = em_pack + static_cast<long long>(s[i]) * kPlanes * M;
+        p1[i] = __ldg(r + m[i]);
+        nx[i] = __ldg(r + M + m[i]);
+        if (kPlanes == 3) mt[i] = __ldg(r + 2 * M + m[i]);
+      }
     }
     if (kStaged) stage_wait(&bar, n_ll);
-    if (!in) return;
-    const int32_t prevm = (slot << mbits) | m;
-    int32_t oc = kBig, on = S, op = prevm;
-    if (s != S)
-      score<kPlanes, kStaged>(p1, nx, mt, tc, row, n_ll, pdf_bits, neg_scale, prevm, S, oc, on,
-                              op);
-    const long long o = static_cast<long long>(b) * E + e;
-    cbits[o] = oc;
-    nsm[o] = on;
-    pm[o] = op;
+#pragma unroll
+    for (int i = 0; i < kCandPer; ++i) {
+      const long long ee = e0 + static_cast<long long>(i) * kThreads;
+      if (ee < E) {
+        int32_t oc = kBig, on = 0, op = 0;
+        if (s[i] != S)
+          score<kPlanes, kStaged>(p1[i], nx[i], mt[i], tc[i], row, n_ll, pdf_bits, neg_scale,
+                                  (slot[i] << mbits) | m[i], oc, on, op);
+        const long long o = static_cast<long long>(b) * E + ee;
+        cbits[o] = oc;
+        if (oc != kBig) {
+          nsm[o] = on;
+          pm[o] = op;
+        }
+      }
+    }
   }
 }
 
@@ -1299,59 +1298,6 @@ select_v4_cluster_kernel(const int32_t* __restrict__ cbits, const int32_t* __res
   }
 }
 
-// Let kernel fn take `bytes` of dynamic shared memory on the current
-// device, once per device (the attribute is per device; `done` is the
-// kernel's own flags).
-template <class F>
-cudaError_t allow_smem(F* fn, int bytes, std::atomic<bool>* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool known = dev >= 0 && dev < kMaxDevices;
-  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
-  return err;
-}
-
-// The dynamic shared memory an expand block may stage its ll row in: the
-// current device's opt-in limit less the kernel's static part.
-int stage_smem_limit() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return kStaticSmemLimit - kStageReserve;
-  return n - kStageReserve;
-}
-
-template <int kPlanes, bool kVec4, bool kStaged>
-cudaError_t launch_expand(dim3 grid, cudaStream_t s, const int32_t* em_pack,
-                          const int32_t* tok_state, const float* tok_cost, const float* ll,
-                          long long ll_stride, int n_ll, int pdf_bits, float neg_scale, int K,
-                          Stripe stripe, int S, int M, int mbits, int32_t* cbits, int32_t* nsm,
-                          int32_t* pm) {
-  const size_t smem = kStaged ? static_cast<size_t>(n_ll) * 4 : 0;
-  if (smem > kStaticSmemLimit - kStageReserve) {
-    static std::atomic<bool> smem_allowed[kMaxDevices];
-    const cudaError_t err = allow_smem(expand_v4_kernel<kPlanes, kVec4, kStaged>,
-                                       stage_smem_limit(), smem_allowed);
-    if (err != cudaSuccess) return err;
-  }
-  expand_v4_kernel<kPlanes, kVec4, kStaged><<<grid, kThreads, smem, s>>>(
-      em_pack, tok_state, tok_cost, ll, ll_stride, n_ll, pdf_bits, neg_scale, K, stripe, S, M,
-      mbits, cbits, nsm, pm);
-  return cudaGetLastError();
-}
-
-// The current device's SM count (the runtime answers from its own cache).
-int num_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return n;
-}
-
 // Let kernel fn take as much dynamic shared memory as the current device
 // allows a block beside its static part, once per device; *limit gets that
 // amount (cached in `limits`, the kernel's own, as the amount + 1).
@@ -1374,22 +1320,6 @@ cudaError_t allow_max_smem(F* fn, std::atomic<int>* limits, int* limit) {
   return err;
 }
 
-cudaLaunchConfig_t cluster_config(int blocks, int C, size_t smem, cudaStream_t s,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(kSelThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(C);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 // CTAs per channel: the most, up to kMaxCluster, with which the device holds
 // all B clusters at once, and at least 2.  H100 holds 66 clusters of 2 of
 // these CTAs (one an SM), 39 of 3, 30 of 4 and 15 of 8, so B = 32 takes 3
@@ -1405,7 +1335,8 @@ int cluster_size(F* fn, int B, bool global, std::atomic<int> (*fit)[kMaxCluster 
     if (n < 0) {
       cudaLaunchAttribute attr;
       const cudaLaunchConfig_t cfg = cluster_config(
-          C, C, select_smem((kTableCap + C - 1) / C, kSortCap, global).cache + 8 * kSelThreads,
+          dim3(C), kSelThreads, C,
+          select_smem((kTableCap + C - 1) / C, kSortCap, global).cache + 8 * kSelThreads,
           nullptr, &attr);
       if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
         cudaGetLastError();
@@ -1418,6 +1349,26 @@ int cluster_size(F* fn, int B, bool global, std::atomic<int> (*fit)[kMaxCluster 
   return 2;
 }
 
+// Launch the expand kernel over grid (tiles, B).
+template <int kPlanes, bool kVec4, bool kStaged>
+cudaError_t launch_expand(dim3 grid, cudaStream_t s, const int32_t* em_pack,
+                          const int32_t* tok_state, const float* tok_cost, const float* ll,
+                          long long ll_stride, int n_ll, int pdf_bits, float neg_scale, int K,
+                          Stripe stripe, int S, int M, int mbits, int32_t* cbits, int32_t* nsm,
+                          int32_t* pm) {
+  const size_t smem = kStaged ? static_cast<size_t>(n_ll) * 4 : 0;
+  if (smem > kStaticSmemLimit - kStageReserve) {
+    static std::atomic<bool> smem_allowed[kMaxDevices];
+    const cudaError_t err = allow_smem(expand_v4_kernel<kPlanes, kVec4, kStaged>,
+                                       stage_smem_limit(), smem_allowed);
+    if (err != cudaSuccess) return err;
+  }
+  expand_v4_kernel<kPlanes, kVec4, kStaged><<<grid, kThreads, smem, s>>>(
+      em_pack, tok_state, tok_cost, ll, ll_stride, n_ll, pdf_bits, neg_scale, K, stripe, S, M,
+      mbits, cbits, nsm, pm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // planes: 2 for packed16 rows, 3 for exact3 rows (pdf_bits the width of
@@ -1425,35 +1376,37 @@ int cluster_size(F* fn, int B, bool global, std::atomic<int> (*fit)[kMaxCluster 
 // slot_base + k * slot_stride of a frontier whose rows hold tok_row slots
 // (the whole frontier: K, 0, 1).  stage_req: -1 picks as below, 0 asks for
 // the staged row, 1 for reads in place (a row the bulk copy cannot take,
-// or too long for shared memory, is always read in place).
+// or too long for shared memory, is always read in place).  cbits gets
+// every candidate's key; nsm and pm are defined where cbits < BIG.
 extern "C" int vt_expand_v4(const void* em_pack, const void* tok_state, const void* tok_cost,
                             const void* ll, long long ll_stride, int P, float scale, int B,
                             int K, long long tok_row, int slot_base, int slot_stride, int S,
                             int M, int mbits, int planes, int pdf_bits, void* cbits, void* nsm,
                             void* pm, int stage_req, void* stream) {
   if ((planes != 2 && planes != 3) || (planes == 3 && (pdf_bits < 1 || pdf_bits > 31)) ||
-      slot_base < 0 || slot_stride < 1 ||
+      slot_base < 0 || slot_stride < 1 || stage_req < -1 || stage_req > 1 ||
       (K > 0 && slot_base + static_cast<long long>(K - 1) * slot_stride >= tok_row))
     return static_cast<int>(cudaErrorInvalidValue);
   const Stripe stripe{tok_row, slot_base, slot_stride};
   // the ll words a lookup can reach: pdf ids of packed16 rows are below 2^14
   const int n_ll = planes == 2 && P > kPdfWords ? kPdfWords : P;
   const bool vec4 = M == 4;
+  const long long per_block = vec4 ? kThreads : static_cast<long long>(kThreads) * kCandPer;
   const long long units = vec4 ? K : static_cast<long long>(K) * M;
-  const dim3 grid(static_cast<unsigned>((units + kThreads - 1) / kThreads), B);
-  // Staging pays while every block has an SM, and its L1, to itself: one
-  // bulk copy brings the row, overlapped with the token loads.  With more
-  // blocks than SMs, blocks of a channel share an SM's L1, and reads in
-  // place hit the lines the others brought, where staging would repeat the
-  // whole row per block.  A row above 2^14 words costs each block more to
-  // copy than its lookups save, so the choice stages at most that.  The
+  const dim3 grid(static_cast<unsigned>((units + per_block - 1) / per_block), B);
+  // The kernel's own choice, from the card's interleaved times (PERF.md):
+  // the staged row pays only while every block has an SM, and its L1, to
+  // itself and a channel spans at least 8 blocks (a B = 1 stream over the
+  // whole frontier); one block (a grammar frame) or few (the K = 1024 rung)
+  // do better reading in place, and so does every grid with more blocks
+  // than SMs, whose blocks of a channel share an SM's L1.  A row above
+  // 2^14 words costs each block more to copy than its lookups save.  The
   // bulk copy needs a 16-byte aligned source and a multiple of 16 bytes.
   const bool fits = reinterpret_cast<uintptr_t>(ll) % 16 == 0 && ll_stride % 4 == 0 &&
                     n_ll % 4 == 0 && static_cast<long long>(n_ll) * 4 <= stage_smem_limit();
-  const bool staged = fits && (stage_req < 0
-                                      ? static_cast<long long>(grid.x) * B <= num_sms() &&
-                                            n_ll <= kPdfWords
-                                      : stage_req == 0);
+  const bool staged = fits && (stage_req < 0 ? static_cast<long long>(grid.x) * B <= num_sms() &&
+                                                   grid.x >= 8 && n_ll <= kPdfWords
+                                             : stage_req == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* e = static_cast<const int32_t*>(em_pack);
   const auto* ts = static_cast<const int32_t*>(tok_state);
@@ -1527,7 +1480,8 @@ extern "C" int vt_select_v4(
     const int cache_cap = static_cast<int>((limit - used) / 8);
     const size_t smem = used + static_cast<size_t>(cache_cap) * 8;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(B * C, C, smem, s, &attr);
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(static_cast<unsigned>(B * C)), kSelThreads, C, smem, s, &attr);
     return cudaLaunchKernelEx(
         &cfg, kern, cb, static_cast<const int32_t*>(nsm), static_cast<const int32_t*>(pm), E,
         best, count, static_cast<const uint32_t*>(l), static_cast<const int32_t*>(tok_state),

@@ -3,11 +3,11 @@
 At first use every `csrc/*.cu` is compiled by its own nvcc process, all
 started together, and linked into one
 `vosk_tpu_torch/_build/libvt_kernels-<hash>.so` with a plain C interface,
-loaded with ctypes; the hash covers every source and the flags, so a fresh
-checkout builds it on its own.  ptxas's report (registers, shared memory,
-spills per kernel) is kept beside the library (`build_log()`).  The
-wrappers (ops/gather.py, ops/frame_step.py) take their entry points from
-`function`.
+loaded with ctypes; the hash covers every source, every shared header
+(`csrc/*.cuh`) and the flags, so a fresh checkout builds it on its own.
+ptxas's report (registers, shared memory, spills per kernel) is kept
+beside the library (`build_log()`).  The wrappers (ops/gather.py,
+ops/frame_step.py) take their entry points from `function`.
 """
 from __future__ import annotations
 
@@ -47,13 +47,20 @@ def _nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The translation units, one nvcc each."""
     return sorted(_CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers they share (csrc/*.cuh)."""
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the built kernel library lives, keyed by sources and flags."""
+    """Where the built kernel library lives, keyed by sources, headers and
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return _BUILD_DIR / f"libvt_kernels-{h.hexdigest()[:16]}.so"
 

@@ -6,6 +6,7 @@ Per frame the decoder (ops/viterbi.py) runs
     ids need 15 bits or more), the acoustic lookup ll[b, pdf] and the
     order-preserving cost keys in one pass (source:
     `vosk_tpu/ops/viterbi.py` `_unpack_rows_v4` + `_expand_v4`, :833-894);
+    nsm and pm are defined where cbits < BIG;
   * `select_v4`: from that unsorted pool, the dedup by next state, the
     beam prune, the trailing-silence lookup tsil[b, prev], the new
     frontier and the five record planes, in two launches (a scan of the
@@ -200,12 +201,19 @@ def expand_v4(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits, pdf
     from the whole frontier (no strided copy).  stage: None lets the kernel
     choose how it reads the ll row; a key of EXPAND_STAGES forces one (for
     measurement; a row longer than shared memory holds is read in place all
-    the same).  `expand_v4.launches` counts kernel launches."""
+    the same).  `expand_v4.launches` counts kernel launches.
+
+    The kernel writes what select reads: cbits for every candidate, and nsm
+    and pm are defined where cbits < BIG (a real arc of a live token; a
+    dead token's or padding arc's candidate leaves them unwritten).  The
+    plain version writes (BIG, S, prevm) there, as the JAX package does."""
     _check_2d("tok_state", tok_state, torch.int32)
     B, row = tok_state.shape
     K = stripe_len(row, slot_base, slot_stride)
     if pdf_bits is not None and not 1 <= pdf_bits <= 31:
         raise ValueError(f"exact3 rows need pdf_bits in 1..31; got {pdf_bits}")
+    if stage is not None and stage not in EXPAND_STAGES:
+        raise ValueError(f"stage must be None or one of {list(EXPAND_STAGES)}; got {stage!r}")
     _check_2d("em_pack", em_pack, torch.int32, cols=(2 if pdf_bits is None else 3) * M)
     _check_2d("tok_cost", tok_cost, torch.float32, B, row)
     _check_2d("ll", ll, torch.float32, B)
@@ -399,7 +407,8 @@ def select_v4(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2,
     """`select_v4_plain` as the kernel select_v4 (two launches: a scan, then
     a cluster of CTAs per channel; no sort of the pool) on CUDA tensors; the
     plain version on CPU tensors.  The pool must be as `expand_v4` writes
-    it: a candidate keyed below BIG has a next state below S.  The record
+    it: a candidate keyed below BIG has a next state below S; nsm and pm are
+    defined where cbits < BIG, and neither version reads them elsewhere.  The record
     planes in `out` may be views of [T, B, K|R] buffers at frame t (rows
     contiguous); valid may be a column of a [B, T] mask.  scratch: a
     `SelectScratch` kept across calls (a fresh one per call when None).

@@ -22,7 +22,10 @@ import torch
 
 from . import _kernels
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# how the kernel reads the table row: in place, staged in each block by a
+# bulk copy, or multicast over a cluster of the channel's tiles
+GATHER_STAGES = {"in_place": 0, "staged": 1, "multicast": 2}
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -56,14 +59,19 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                              device=table.device))
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, stage=None) -> torch.Tensor:
     """out[b, n] = table[b, idx[b, n]] for a 4-byte table and int32 indices;
     0 where an index is outside [0, P).
 
     CUDA tensors go to the kernel, which raises if it cannot build or
-    launch; CPU tensors go to `gather_rows_plain`.  `gather_rows.launches`
-    counts kernel launches."""
+    launch; CPU tensors go to `gather_rows_plain`.  stage: None lets the
+    kernel choose how it reads the table row by shape; a key of
+    GATHER_STAGES forces one (for measurement; a row the bulk copy cannot
+    take, or longer than shared memory holds, is read in place all the
+    same).  `gather_rows.launches` counts kernel launches."""
     _check(table, idx)
+    if stage is not None and stage not in GATHER_STAGES:
+        raise ValueError(f"stage must be None or one of {list(GATHER_STAGES)}; got {stage!r}")
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if table.device.type != "cuda":
@@ -72,13 +80,18 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     N = idx.shape[1]
     if B > 65535 or B * max(P, N) >= 2**31:
         raise ValueError(f"gather_rows shape out of range: B={B} P={P} N={N}")
-    out = torch.empty(idx.shape, dtype=table.dtype, device=table.device)
+    # out at idx's offset from a 16-byte boundary, so that both move as
+    # 16-byte vectors (a view into one more vector's room when idx is a
+    # view off that boundary)
+    shift = idx.data_ptr() % 16 // 4
+    out = torch.empty(B * N + shift, dtype=table.dtype, device=table.device)[shift:].view(B, N)
     if B == 0 or N == 0:
         return out
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
         err = _kernels.function("vt_gather_rows", _ARGTYPES)(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, P, N, stream
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, P, N,
+            -1 if stage is None else GATHER_STAGES[stage], stream
         )
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {err}")

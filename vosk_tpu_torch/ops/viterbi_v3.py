@@ -205,8 +205,10 @@ def shard_candidates(dec, mesh, cbits, pays, Kn):
 
     The source masks before its sort; masking the sorted prefix keeps the
     same keys in the same order (the masked ones sort last either way), and
-    the payload of a BIG key is never read.  The best key is the first of
-    the sorted row, so no separate minimum is taken."""
+    the payload of a BIG key is never read: nsm and pm are defined where
+    cbits < BIG (`frame_step.expand_v4` leaves them unwritten elsewhere).
+    The best key is the first of the sorted row, so no separate minimum is
+    taken."""
     C = min(cbits.shape[1], SHARD_SLACK * Kn)
     cb, order = torch.sort(cbits, dim=1, stable=True)
     cb, order = cb[:, :C], order[:, :C]

@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only | --csr-only
-                           | --mesh-only | --adaptive-only]
+                           | --mesh-only | --adaptive-only | --threads-only]
 
 (`--rescoring-only` / `--pitch-only` / `--training-only` / `--csr-only` /
 `--mesh-only` / `--adaptive-only` build the kernels and run phase 12 / 13 /
 15 / 16 / 17 / 18 alone, with no result line; `--csr-only` builds phase 4's
 model and phase 10's directory first, `--mesh-only` phase 4's model and
 phase 11's v3 decoder, `--adaptive-only` phase 4's model; `--mesh-only`
-leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which raises on failure
+leaves out 17e's nnet3 part, which runs in phase 9.  `--threads-only` runs
+phase 7's long stream and phase 14 (b0), (b) and (d) on phase 4's model,
+with test_vosk_mt.c 5 times, each held to its floor.)  Phases, each of
+which raises on failure
 (the script then exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
@@ -159,7 +162,15 @@ leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which rais
      port's websocket server (ASRServer) on phase 4's dir (phase 7's
      Model) at 127.0.0.1: four concurrent clients stream 3 s of noise in
      8000-byte chunks, words on; each final must equal a direct
-     KaldiRecognizer's; round trip per chunk (p50, max); (c) the
+     KaldiRecognizer's; round trip per chunk (p50, max) and the
+     recognizers' combined steps (their number by rows); before it, (b0)
+     combined steps on the card: STEP_ROWS (4) recognizers of the model
+     (distinct noise) step 3 chunks, the AM's flush and 3 more chunks
+     together (runtime/recognizer.py combined_step, STEP_ROWS rows), and so
+     does each alone: features, ll, frontier and records must be bit-equal
+     row by row, and the retained record bytes equal; then, unbounded, the
+     rows of 2-4 streams stepped unpadded at their number of rows that
+     differ from each stream's alone at 1 row are counted; (c) the
      transcriber CLI (txt, srt) on a 10 s WAV, and the same WAV through
      --server against (b)'s server: the same words; (d) the C ABI:
      libvosk_tpu_torch.so built, core/test/test_vosk.c and test_vosk_mt.c
@@ -167,9 +178,11 @@ leaves out 17e's nnet3 part, which runs in phase 9.)  Phases, each of which rais
      the WAV with phase 4's dir (words.txt gains "one", which test_vosk.c
      looks up), VOSK_TPU_TORCH_DEVICE unset: both must exit 0 and print
      what a direct recognizer returns, test_vosk_mt.c's 4 threads must
-     reach MT_MIN_SCALING over a warmed model (and run once more without
-     the model's turn lock, for comparison), and their processes' kernel
-     counts must show both frame-step kernels.
+     reach its own x1.5 scaling floor over a warmed model (no
+     VOSK_MT_MIN_SCALING), with the number of steps the 4 threads took and
+     their mean rows printed, and run once more with the model's combiner
+     stepping one stream at a time (no floor; for comparison), and their
+     processes' kernel counts must show both frame-step kernels.
  15. (run after 14) training: (a) the bench TDNN-F (40/512/96/192/6008,
      11 layers, bf16) on a seeded minibatch of 64 chunks of 150 frames
      (forward_utterance adds the context), 50 output frames of seeded pdf
@@ -360,12 +373,6 @@ def zero_counts():
 
 
 V4_KERNELS = ("expand_v4", "select_v4")  # the v4 step's kernels
-# test_vosk_mt.c's floor on 4 threads' throughput over one thread's.  Its
-# own x1.5 holds the JAX engine.  The port's recognizers take turns at the
-# card (NativeModel.turn_lock), so threads add no throughput but must not
-# lose it either, as they did without the turns (this phase runs both;
-# PERF.md §6); x1.5 needs streams batched across threads (ROADMAP C)
-MT_MIN_SCALING = "0.6"
 V3_KERNELS = ("gather_rows",)             # the v3 step's kernel
 
 
@@ -2470,6 +2477,101 @@ def direct_results(model, pcm, piece, endpoints=True):
     return outs + [rec.FinalResult()]
 
 
+def record_bytes(records) -> int:
+    """Bytes of device storage a recognizer's retained records hold."""
+    return sum(v.untyped_storage().nbytes() for r in records for v in r.values())
+
+
+def phase_rows(torch, model, chunks=3):
+    """Phase 14 (b0): STEP_ROWS recognizers of `model` (distinct noise) step
+    `chunks` 0.2 s chunks, the AM's flush and `chunks` more together through
+    combined_step, and as many more each alone: features, ll, their masks,
+    frontier rows and record rows must be bit-equal, the host values equal,
+    and the retained record bytes equal.  Then, for the record, why steps
+    are padded: n = 2 .. STEP_ROWS fresh streams step `chunks` chunks at n
+    rows with no padding, each against its stream alone at 1 row, and the
+    rows whose features or ll differ are counted (no bound).  Returns the
+    number of rows compared."""
+    import numpy as np
+
+    import vosk_tpu_torch
+    from vosk_tpu_torch.runtime import recognizer as R
+
+    n = R.STEP_ROWS
+
+    def recs(k):
+        return [vosk_tpu_torch.KaldiRecognizer(model, 16000)._rec for _ in range(k)]
+
+    together, alone = recs(n), recs(n)
+    S = together[0].chunk_samples
+    waves = [np.frombuffer(noise_pcm(2 * chunks * 0.2, 16000, SEED + 50 + i), "<i2")
+             .astype(np.float32) for i in range(n)]
+    compared = 0
+    for c in range(2 * chunks + 1):
+        flush = c == chunks
+
+        def part(r, i):
+            return R._Part(r) if flush else R._Part(r, waves[i][(c - (c > chunks)) * S:][:S], S)
+
+        parts = [part(r, i) for i, r in enumerate(together)]
+        got = R.combined_step(parts)
+        for i, (r, p) in enumerate(zip(together, parts)):
+            q = part(alone[i], i)
+            want = R.combined_step([q])
+            for k in ("feats", "fvalid", "ll", "lvalid"):
+                if got[k] is not None and not torch.equal(bits(torch, got[k][i]),
+                                                          bits(torch, want[k][0])):
+                    raise AssertionError(f"(b0) chunk {c}: row {i}'s {k} differs from its "
+                                         f"stream's alone")
+            for k in got["frontier"]:
+                if not torch.equal(bits(torch, got["frontier"][k][i]),
+                                   bits(torch, want["frontier"][k][0])):
+                    raise AssertionError(f"(b0) chunk {c}: row {i}'s frontier {k} differs")
+            for k in p.records:
+                if not torch.equal(bits(torch, p.records[k]), bits(torch, q.records[k])):
+                    raise AssertionError(f"(b0) chunk {c}: row {i}'s records {k} differ")
+            if not np.array_equal(p.head, q.head):
+                raise AssertionError(f"(b0) chunk {c}: row {i}'s host values differ")
+            r._take(p)
+            alone[i]._take(q)
+            compared += 1
+    kept = [record_bytes(r._records) for r in together]
+    if kept != [record_bytes(r._records) for r in alone]:
+        raise AssertionError("(b0) a stream stepped with others retains other record bytes "
+                             "than alone")
+    unpadded = {}
+    try:
+        for k in range(2, n + 1):
+            together, alone = recs(k), recs(k)
+            rows = differ = 0
+            worst = {"feats": 0.0, "ll": 0.0}
+            for c in range(chunks):
+                parts = [R._Part(r, waves[i][c * S:][:S], S) for i, r in enumerate(together)]
+                R.STEP_ROWS = k
+                got = R.combined_step(parts)
+                for i, p in enumerate(parts):
+                    q = R._Part(alone[i], waves[i][c * S:][:S], S)
+                    R.STEP_ROWS = 1
+                    want = R.combined_step([q])
+                    diff = {f: float((got[f][i].float() - want[f][0].float()).abs().max())
+                            for f in worst}
+                    rows += 1
+                    differ += any(v > 0 for v in diff.values())
+                    worst = {f: max(worst[f], diff[f]) for f in worst}
+                    together[i]._take(p)
+                    alone[i]._take(q)
+            unpadded[k] = dict(rows=rows, rows_differing=differ, max_abs_feats=worst["feats"],
+                               max_abs_ll=worst["ll"])
+    finally:
+        R.STEP_ROWS = n
+    log(f"combined steps (b0): {n} streams x {2 * chunks} chunks and the AM's flush, "
+        f"{n} rows a step: features, ll, frontier, records and host values "
+        f"bit-equal to each stream's own steps ({compared} rows); retained record bytes "
+        f"{kept[0]} a stream either way; unpadded, n streams at n rows against each alone "
+        f"at 1 row (why steps are padded): {json.dumps(unpadded)}")
+    return compared
+
+
 def phase_server(torch, model, clients=4):
     """Phase 14 (b): the port's websocket server on phase 4's model dir
     (phase 7's Model): `clients` concurrent wsproto clients each stream 3 s
@@ -2501,12 +2603,14 @@ def phase_server(torch, model, clients=4):
     async def all_clients():
         return await asyncio.gather(*(client(p) for p in pcms))
 
+    sizes = dict(model._model.combiner.sizes)
     zero_counts()  # every kernel count, just before the path
     t0 = time.perf_counter()
     finals = asyncio.run(all_clients())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts("the websocket server")
+    steps = {k: v - sizes.get(k, 0) for k, v in model._model.combiner.sizes.items()}
     for i, (final, pcm) in enumerate(zip(finals, pcms)):
         want = direct_results(model, pcm, 8000)[-1]
         if final != want:
@@ -2515,7 +2619,8 @@ def phase_server(torch, model, clients=4):
     r = np.array(rtts)
     log(f"server: {clients} concurrent clients x {REQUEST_SECONDS} s in 8000-byte chunks, "
         f"words on: {len(r)} chunk round trips p50 {np.median(r) * 1e3:.3f} ms max "
-        f"{r.max() * 1e3:.3f} ms; wall {wall:.3f} s; every final equals the direct "
+        f"{r.max() * 1e3:.3f} ms; wall {wall:.3f} s; the recognizers' "
+        f"{step_rows_line(steps)}; every final equals the direct "
         f"KaldiRecognizer's; {count_line(launches)}; texts "
         f"{json.dumps([json.loads(f)['text'][:30] for f in finals])}")
     return launches, srv
@@ -2576,17 +2681,20 @@ def phase_transcriber(torch, tmp, model_dir, srv, wav):
 
 
 # Loaded by the C programs' embedded interpreter (on PYTHONPATH, first): a
-# daemon thread writes the port's kernel counts to $VT_COUNTS_OUT every
-# 0.1 s, since the programs never finalize the interpreter.  With VT_WARM
-# set, each Model decodes 1 s of noise once it is loaded (the shared
-# decoder's build, the first launches), so that test_vosk_mt.c's
-# single-thread baseline times decoding alone; the counts written leave
-# that decode out.  With VT_NO_TURNS set, models get no turn lock
-# (NativeModel.turn_lock), to measure what it changes.
+# daemon thread writes the port's kernel counts, and the number of steps by
+# rows that threads other than the main one led (test_vosk_mt.c's 4
+# threads; its single-thread baseline runs in the main thread), to
+# $VT_COUNTS_OUT every 0.1 s, since the programs never finalize the
+# interpreter.  With VT_WARM set, each Model decodes 1 s of noise once it
+# is loaded (the shared decoder's build, the first launches), so that
+# test_vosk_mt.c's single-thread baseline times decoding alone; the counts
+# written leave that decode out.  With VT_ONE_AT_A_TIME set, the models'
+# combiners step one stream at a time.
 COUNTS_PROBE = '''
 import json, os, sys, threading, time
 
 _warm = {}
+_rows = {}
 
 
 def _counts():
@@ -2604,6 +2712,7 @@ def _watch(path):
         if counts is None:
             continue
         counts = {k: v - _warm.get(k, 0) for k, v in counts.items()}
+        counts["step_rows"] = dict(_rows)
         with open(path + ".tmp", "w") as f:
             json.dump(counts, f)
         os.replace(path + ".tmp", path)
@@ -2624,18 +2733,20 @@ def _warmed(init):
     return __init__
 
 
-if os.environ.get("VT_NO_TURNS"):
-    import contextlib
+def _counted(step):
+    def run(parts):
+        if threading.current_thread() is not threading.main_thread():
+            _rows[len(parts)] = _rows.get(len(parts), 0) + 1
+        return step(parts)
+    return run
 
-    from vosk_tpu_torch.io import native
 
-    def _no_turns(init):
-        def __init__(self, *args, **kw):
-            init(self, *args, **kw)
-            self.turn_lock = contextlib.nullcontext()
-        return __init__
+from vosk_tpu_torch.io import native
+from vosk_tpu_torch.runtime import recognizer
 
-    native.NativeModel.__init__ = _no_turns(native.NativeModel.__init__)
+recognizer.combined_step = _counted(recognizer.combined_step)
+if os.environ.get("VT_ONE_AT_A_TIME"):
+    native.StepCombiner.rows = 1
 if os.environ.get("VT_WARM"):
     import vosk_tpu_torch
 
@@ -2644,19 +2755,31 @@ threading.Thread(target=_watch, args=(os.environ["VT_COUNTS_OUT"],), daemon=True
 '''
 
 
-def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
+def step_rows_line(rows) -> str:
+    """'N steps (n with more than one row), mean rows m' of a {rows: steps}
+    count."""
+    rows = {int(k): v for k, v in rows.items()}
+    n = sum(rows.values())
+    mean = sum(k * v for k, v in rows.items()) / n if n else 0.0
+    return (f"{n} steps ({sum(v for k, v in rows.items() if k > 1)} with more than one "
+            f"row), mean rows {mean:.3f}, by rows {json.dumps(dict(sorted(rows.items())))}")
+
+
+def phase_cabi(torch, tmp, model, model_dir, wav, pcm, mt_runs=1):
     """Phase 14 (d): build libvosk_tpu_torch.so, compile core/test/test_vosk.c
     and test_vosk_mt.c (4 threads) against it into the build directory, and
     run both on the 10 s WAV (its samples `pcm`) with phase 4's dir (its
     files linked into a dir of their own whose words.txt gains the word
     "one", which test_vosk.c looks up and no arc of the graph outputs),
-    VOSK_TPU_TORCH_DEVICE unset (the card).  Both must exit 0 and print what a direct KaldiRecognizer on
-    `model` returns for the same calls; test_vosk_mt.c's thread scaling
-    must reach MT_MIN_SCALING, its Model warmed by one decode before the
-    single-thread baseline, and is printed once more without the model's
-    turn lock; each program's kernel counts (read by COUNTS_PROBE in its
-    process) must show both frame-step kernels.  Returns {program:
-    launches}."""
+    VOSK_TPU_TORCH_DEVICE unset (the card).  Both must exit 0 and print what
+    a direct KaldiRecognizer on `model` returns for the same calls;
+    test_vosk_mt.c runs `mt_runs` times, each of which must pass its own
+    x1.5 scaling floor, its Model warmed by one decode before the
+    single-thread baseline, and once more with the model's combiner
+    stepping one stream at a time (no floor).  The steps its 4 threads took
+    are printed by rows, and each program's kernel counts (read by
+    COUNTS_PROBE in its process) must show both frame-step kernels.
+    Returns {program: launches}."""
     import os
 
     import numpy as np
@@ -2676,7 +2799,7 @@ def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
     cdir = Path(tmp) / "cabi_model"
     cdir.mkdir(exist_ok=True)
     for f in Path(model_dir).iterdir():
-        if f.name != "words.txt":
+        if f.name != "words.txt" and not (cdir / f.name).exists():
             (cdir / f.name).symlink_to(f.resolve())
     words = (Path(model_dir) / "words.txt").read_text()
     n_words = len(words.splitlines())
@@ -2689,18 +2812,19 @@ def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
     sites = {str(Path(m.__file__).resolve().parents[1]) for m in (torch, np)}
     env = dict(os.environ)
     env.pop("VOSK_TPU_TORCH_DEVICE", None)
+    env.pop("VOSK_MT_MIN_SCALING", None)
     env["PYTHONPATH"] = os.pathsep.join([str(probe), str(ROOT), *sorted(sites)] + (
         [env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     want = {"test_vosk": direct_results(model, pcm, 3200),
             "test_vosk_mt": direct_results(model, pcm, 3200, endpoints=False)[-1:]}
-    launches, walls, notes = {}, {}, {}
-    for key, prog, argv, extra in (
-            ("test_vosk", "test_vosk", [], {}),
-            ("test_vosk_mt", "test_vosk_mt", ["4"],
-             {"VT_WARM": "1", "VOSK_MT_MIN_SCALING": MT_MIN_SCALING}),
-            # for comparison, the models without their turn lock (no floor)
-            ("test_vosk_mt_no_turns", "test_vosk_mt", ["4"],
-             {"VT_WARM": "1", "VT_NO_TURNS": "1", "VOSK_MT_MIN_SCALING": "0"})):
+    runs = [("test_vosk", "test_vosk", [], {})] + [
+        ("test_vosk_mt" + (f"_{i + 1}" if i else ""), "test_vosk_mt", ["4"], {"VT_WARM": "1"})
+        for i in range(mt_runs)] + [
+        # for comparison, without combining (no floor)
+        ("test_vosk_mt_one_at_a_time", "test_vosk_mt", ["4"],
+         {"VT_WARM": "1", "VT_ONE_AT_A_TIME": "1", "VOSK_MT_MIN_SCALING": "0"})]
+    launches, walls, notes, rows, failed = {}, {}, {}, {}, []
+    for key, prog, argv, extra in runs:
         counts = Path(tmp) / f"{key}.counts.json"
         t0 = time.perf_counter()
         proc = subprocess.run([str(bdir / prog), str(cdir), str(wav), *argv],
@@ -2708,8 +2832,11 @@ def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
                               capture_output=True, text=True, timeout=600)
         walls[key] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise AssertionError(f"{key} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
+            # raised after the line below, which prints every run's numbers
+            failed.append(f"{key} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                          f"{proc.stderr[-4000:]}")
+            if "THROUGHPUT" not in proc.stdout:
+                break
         if prog == "test_vosk":
             got = [x for x in proc.stdout.splitlines() if x.startswith("{")]
         else:
@@ -2719,16 +2846,20 @@ def phase_cabi(torch, tmp, model, model_dir, wav, pcm):
             raise AssertionError(f"{key} printed {got[-1]} where the direct recognizer "
                                  f"gives {want[prog][-1]}")
         launches[key] = json.loads(counts.read_text()) if counts.exists() else {}
+        rows[key] = launches[key].pop("step_rows", {})
         if any(launches[key].get(k, 0) <= 0 for k in V4_KERNELS):
             raise AssertionError(f"{key} did not launch the frame-step kernels: "
                                  f"{launches[key]}")
+    mt = [f"{k} wall {walls[k]:.3f} s ({notes[k]}); its 4 threads' steps: "
+          f"{step_rows_line(rows[k])}" for k in notes]
     log(f"C ABI: libvosk_tpu_torch.so built in {t_lib:.3f} s ({lib}), test programs compiled "
-        f"in {t_gcc:.3f} s; test_vosk wall {walls['test_vosk']:.3f} s, test_vosk_mt (4 "
-        f"threads) wall {walls['test_vosk_mt']:.3f} s ({notes['test_vosk_mt']}; floor "
-        f"x{MT_MIN_SCALING}), without the turn lock {walls['test_vosk_mt_no_turns']:.3f} s "
-        f"({notes['test_vosk_mt_no_turns']}); all print the direct recognizer's results "
-        f"(text {json.loads(want['test_vosk'][-1])['text'][:40]!r}); "
-        f"counts in their processes {json.dumps(launches)}")
+        f"in {t_gcc:.3f} s; test_vosk wall {walls.get('test_vosk', 0):.3f} s; "
+        + "; ".join(mt) + f"; counts in their processes {json.dumps(launches)}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    log(f"C ABI: test_vosk_mt passed its own x1.5 floor ({mt_runs} of {mt_runs} runs); all "
+        f"print the direct recognizer's "
+        f"results (text {json.loads(want['test_vosk'][-1])['text'][:40]!r})")
     return {k: launches[k] for k in ("test_vosk", "test_vosk_mt")}
 
 
@@ -3981,6 +4112,18 @@ def main() -> int:
             launches_adaptive, adaptive_times = phase_adaptive(torch, bm)
             log(json.dumps({"launches": launches_adaptive, "times": adaptive_times}))
         return 0
+    if sys.argv[1:] == ["--threads-only"]:  # phases 7 and 14 (b0, b, d) on phase 4's model
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_model(torch, dev, tmp)  # writes phase 4's dir
+            gc.collect()
+            _, model = phase_streaming(torch, Path(tmp) / "bench_model")
+            phase_rows(torch, model)
+            phase_server(torch, model)[1].close()
+            pcm10 = noise_pcm(10.0, 16000, SEED + 30)
+            wav10 = Path(tmp) / "phase14.wav"
+            write_pcm_wav(wav10, pcm10)
+            phase_cabi(torch, tmp, model, Path(tmp) / "bench_model", wav10, pcm10, mt_runs=5)
+        return 0
     if sys.argv[1:] == ["--pitch-only"]:  # phase 13 alone, for iterating on it
         with tempfile.TemporaryDirectory() as tmp:
             *_, model, audio, info = phase_pitch(torch, tmp)
@@ -4039,6 +4182,7 @@ def main() -> int:
         gc.collect()
         t14 = time.perf_counter()
         launches_exact3, exact3_times = phase_exact3(torch, tmp)
+        phase_rows(torch, bench_stream_model)
         launches_server, srv = phase_server(torch, bench_stream_model)
         try:
             pcm10 = noise_pcm(10.0, 16000, SEED + 30)

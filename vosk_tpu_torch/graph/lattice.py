@@ -1,10 +1,16 @@
 """Host-side lattice finishing: build a word lattice from the decoder's
 records, prune, compute arc posteriors (forward-backward), extract n-best.
 
-Copy of `vosk_tpu/graph/lattice.py` (numpy only): `LatArc`, `Lattice`,
+Copy of `vosk_tpu/graph/lattice.py`: `LatArc`, `Lattice`,
 `rescore_lattice` (LM rescoring by on-demand composition),
-`convert_v4_records`, `build_lattice` and `splice_lattices`.  Records and frontiers may be torch
-tensors on any device; `to_host` pulls what the host reads.  The native
+`convert_v4_records`, `build_lattice` and `splice_lattices`.  Records and
+frontiers may be torch tensors on any device; `to_host` pulls what the host
+reads.  Of v4 records, `_v4_entries` finds on their device the entries the
+host reads (slots and lattice rows with an arc, live slots), and only those
+come to the host: `convert_v4_records` scatters them into the source's
+dense planes, and `build_lattice` reads them as they are (the source
+converts every [T, K] plane on the host); both give the source's results,
+bit for bit.  The native
 library in `core/` builds and finishes the same lattices faster
 (runtime/native_lattice.py); this Python lattice serves the streaming
 recognizer's windowed (folded) lattices and the fallbacks of
@@ -371,55 +377,31 @@ def convert_v4_records(
     the records do not start at utterance start (fold boundary); defaults
     to the decoder's initial closure.
     """
-    from ..ops.viterbi import PM_IDENT_FLAG, PM_MASK
-
-    mbits = dec.mbits
-    mmask = (1 << mbits) - 1
-    ident = int(PM_IDENT_FLAG)
-    pm_mask = int(PM_MASK)
-    S = dec.S
+    e = _v4_entries(dec, records, channel, init_states)
     out = []
-    prev_state_row = to_host(
-        init_states if init_states is not None else dec._init_states
-    )
-    for rec in records:
-        pm = to_host(rec["pm"][:, channel])  # [T, K]
-        state = to_host(rec["state"][:, channel])
-        T, K = pm.shape
+    for c, rec in enumerate(records):
+        state = to_host(rec["state"][:, channel])  # [T, K]
         f_cost = to_host(rec["f_cost"][:, channel])
-        lat_pm = to_host(rec["lat_pm"][:, channel])  # [T, R]
-        lat_cost = to_host(rec["lat_cost"][:, channel])
-        R = lat_pm.shape[1]
+        lat_cost = to_host(rec["lat_cost"][:, channel])  # [T, R]
+        lo, hi = e["first"][c], e["first"][c + 1]
+        a = slice(*np.searchsorted(e["a_t"], [lo, hi]))
+        ti, ki, real, m, src = (e["a_t"][a] - lo, e["a_k"][a], e["a_real"][a], e["a_m"][a],
+                                e["a_src"][a])
+        prev = np.full(state.shape, -1, np.int32)
+        prev[ti, ki] = e["a_p"][a]
+        pdf = np.full(state.shape, -1, np.int32)
+        olabel = np.zeros(state.shape, np.int32)
+        pdf[ti[real], ki[real]] = dec.dense_pdf[src[real], m[real]]
+        olabel[ti[real], ki[real]] = dec.dense_olabel[src[real], m[real]]
 
-        pdf = np.full((T, K), -1, np.int32)
-        olabel = np.zeros((T, K), np.int32)
-        prev = np.zeros((T, K), np.int32)
-        lat_prev = np.full((T, R), -1, np.int32)
-        lat_arc = np.full((T, R), -1, np.int32)
-        lat_ns = np.full((T, R), S, np.int32)
-        for t in range(T):
-            pmv = pm[t]
-            is_id = (pmv & ident) != 0
-            real = (pmv >= 0) & ~is_id
-            p = np.where(pmv >= 0, (pmv & pm_mask) >> mbits, 0)
-            m = pmv & mmask
-            prev[t] = np.where(pmv >= 0, p, -1)
-            src = prev_state_row[p]
-            pdf[t, real] = dec.dense_pdf[src[real], m[real]]
-            olabel[t, real] = dec.dense_olabel[src[real], m[real]]
-
-            lv = lat_pm[t]
-            l_id = (lv & ident) != 0
-            l_real = (lv >= 0) & ~l_id
-            lp = np.where(lv >= 0, (lv & pm_mask) >> mbits, 0)
-            lm = lv & mmask
-            lat_prev[t] = np.where(lv >= 0, lp, -1)
-            lat_arc[t, l_real] = lm[l_real]
-            lsrc = prev_state_row[lp]
-            lat_ns[t, l_real] = dec.dense_next[lsrc[l_real], lm[l_real]]
-            # identity lattice rows (masked frames) mirror the frontier
-            lat_ns[t, l_id & (lv >= 0)] = state[t][lp[l_id & (lv >= 0)]]
-            prev_state_row = state[t]
+        r = slice(*np.searchsorted(e["r_t"], [lo, hi]))
+        ti, ri, real = e["r_t"][r] - lo, e["r_r"][r], e["r_real"][r]
+        lat_prev = np.full(lat_cost.shape, -1, np.int32)
+        lat_prev[ti, ri] = e["r_p"][r]
+        lat_arc = np.full(lat_cost.shape, -1, np.int32)
+        lat_arc[ti[real], ri[real]] = e["r_m"][r][real]
+        lat_ns = np.full(lat_cost.shape, dec.S, np.int32)
+        lat_ns[ti, ri] = e["r_ns"][r]
         out.append(
             {
                 "f_state": state[None, :, None, :],
@@ -434,6 +416,118 @@ def convert_v4_records(
             }
         )
     return out
+
+
+def _v4_entries(dec, records: List[dict], channel: int, init_states=None) -> dict:
+    """What the host reads of v4 records ({name: [T, B, K|R]}) of `channel`,
+    found on the records' device so that only these entries come to the
+    host (a frame of K slots usually holds a few hundred live ones), frames
+    counted over the chunks in order (`first`: each chunk's first frame,
+    then the total); each list sorted by frame:
+
+    - a_*: each slot with an arc (pm >= 0): frame t, slot k, previous slot
+      p, arc slot m, whether the arc is real (not the identity of a masked
+      frame) and the state it leaves, src (the frontier row of the frame
+      before: `init_states` before the first, by default the decoder's
+      initial closure);
+    - r_*: each lattice row with an arc (lat_pm >= 0): t, row r, p, m, real,
+      the next state ns (the real arc's, an identity row's mirror of the
+      frontier) and its cost;
+    - n_*: each live slot (finite cost, state below S): t, k, state, cost.
+
+    `convert_v4_records` scatters them into dense planes, `build_lattice`
+    reads them as they are."""
+    import torch
+
+    from ..ops.viterbi import PM_IDENT_FLAG, PM_MASK
+
+    S, mbits = dec.S, dec.mbits
+    mmask = (1 << mbits) - 1
+    ident, pm_mask = int(PM_IDENT_FLAG), int(PM_MASK)
+    pm, state, f_cost, lat_pm, lat_cost = (
+        torch.cat([torch.as_tensor(r[k])[:, channel] for r in records])
+        for k in ("pm", "state", "f_cost", "lat_pm", "lat_cost"))
+    init = to_host(init_states if init_states is not None else dec._init_states)
+    init = torch.as_tensor(np.asarray(init), dtype=state.dtype, device=state.device)
+    prev_rows = torch.cat([init[None], state[:-1]])  # the frontier each frame leaves
+
+    at, ak = (pm >= 0).nonzero(as_tuple=True)
+    av = pm[at, ak]
+    ap = ((av & pm_mask) >> mbits).long()
+    a_real = (av & ident) == 0
+    rt, rr = (lat_pm >= 0).nonzero(as_tuple=True)
+    rv = lat_pm[rt, rr]
+    rp = ((rv & pm_mask) >> mbits).long()
+    r_real = (rv & ident) == 0
+    nt, nk = (torch.isfinite(f_cost) & (state != S)).nonzero(as_tuple=True)
+    names = ["a_t", "a_k", "a_p", "a_m", "a_real", "a_src",
+             "r_t", "r_r", "r_p", "r_m", "r_real", "r_src", "n_t", "n_k", "n_state"]
+    ints = [at, ak, ap, av & mmask, a_real, prev_rows[at, ap],
+            rt, rr, rp, rv & mmask, r_real, torch.where(r_real, prev_rows[rt, rp], state[rt, rp]),
+            nt, nk, state[nt, nk]]
+    e = dict(zip(names, np.split(to_host(torch.cat([x.long() for x in ints])),
+                                 np.cumsum([len(x) for x in ints])[:-1])))
+    e["r_cost"], e["n_cost"] = np.split(
+        to_host(torch.cat([lat_cost[rt, rr], f_cost[nt, nk]])), [len(rt)])
+    for k in ("a_real", "r_real"):
+        e[k] = e[k].astype(bool)
+    # an identity row (masked frame) mirrors the frontier: its src is its ns
+    e["r_ns"] = e["r_src"].copy()
+    real = e["r_real"]
+    e["r_ns"][real] = dec.dense_next[e["r_src"][real], e["r_m"][real]]
+    e["first"] = np.cumsum([0] + [r["pm"].shape[0] for r in records])
+    return e
+
+
+def _frames_dense(records: List[dict], channel: int, S: int):
+    """The frames of v3-layout records ({name: [B, T, L, K|R]}) for
+    `build_lattice`: (frame in its chunk, whether it emits, per level (live
+    slots, their states, their costs, and of the live lattice rows: next
+    state, previous slot, arc, cost)).  A slot lives with a finite cost and
+    a state below S, a lattice row with a finite cost and a next state
+    below S."""
+    for rec in records:
+        f_state = to_host(rec["f_state"][channel])  # [T, L, K]
+        f_cost = to_host(rec["f_cost"][channel])
+        lat_ns = to_host(rec["lat_ns"][channel])  # [T, L, R]
+        lat_prev = to_host(rec["lat_prev"][channel])
+        lat_arc = to_host(rec["lat_arc"][channel])
+        lat_cost = to_host(rec["lat_cost"][channel])
+        pdf_rec = to_host(rec["pdf"][channel])
+        live_k = np.isfinite(f_cost) & (f_state != S)
+        live_r = np.isfinite(lat_cost) & (lat_ns != S)
+        emits = (pdf_rec[:, 0] >= 0).any(axis=1)
+        for t in range(f_state.shape[0]):
+            levels = []
+            for lvl in range(f_state.shape[1]):
+                ks = np.flatnonzero(live_k[t, lvl])
+                rs = np.flatnonzero(live_r[t, lvl])
+                levels.append((ks, f_state[t, lvl, ks], f_cost[t, lvl, ks], lat_ns[t, lvl, rs],
+                               lat_prev[t, lvl, rs], lat_arc[t, lvl, rs], lat_cost[t, lvl, rs]))
+            yield t, bool(emits[t]), levels
+
+
+def _frames_v4(dec, records: List[dict], channel: int, init_states=None):
+    """`_frames_dense` of `convert_v4_records(dec, records, channel,
+    init_states)`, read from `_v4_entries`: a frame emits where one of its
+    real arcs has a pdf; its lattice rows are those with a finite cost and a
+    next state below S (an identity row has no arc, -1)."""
+    e = _v4_entries(dec, records, channel, init_states)
+    N = e["first"][-1]
+    real = e["a_real"]
+    emits = np.zeros(N, bool)
+    emits[e["a_t"][real][dec.dense_pdf[e["a_src"][real], e["a_m"][real]] >= 0]] = True
+    keep = np.isfinite(e["r_cost"]) & (e["r_ns"] != dec.S)
+    rt, r_ns, r_prev, r_cost = (e[k][keep] for k in ("r_t", "r_ns", "r_p", "r_cost"))
+    r_arc = np.where(e["r_real"], e["r_m"], -1)[keep]
+    nt = e["n_t"]
+    nb = np.searchsorted(nt, np.arange(N + 1))
+    rb = np.searchsorted(rt, np.arange(N + 1))
+    for g in range(N):
+        a, b, c, d = nb[g], nb[g + 1], rb[g], rb[g + 1]
+        t = g - e["first"][np.searchsorted(e["first"], g, side="right") - 1]
+        yield t, bool(emits[g]), [(e["n_k"][a:b], e["n_state"][a:b], e["n_cost"][a:b],
+                                   r_ns[c:d], r_prev[c:d], r_arc[c:d], r_cost[c:d])]
 
 
 def build_lattice(
@@ -460,11 +554,10 @@ def build_lattice(
     # ORIGINAL channel (a ch>0 stream would otherwise get stream 0's finals)
     fr_channel = channel
     if records and "pm" in records[0]:
-        records = convert_v4_records(
-            dec, records, channel,
-            init_states=None if init_override is None else init_override[0],
-        )
-        channel = 0
+        frames = _frames_v4(dec, records, channel,
+                            None if init_override is None else init_override[0])
+    else:
+        frames = _frames_dense(records, channel, dec.S)
     graph = dec.graph
     em_olabel, em_w = graph.em_olabel, graph.em_w
     em_pdf = graph.em_pdf
@@ -515,83 +608,65 @@ def build_lattice(
         )
 
     frame_idx = 0
-    for rec in records:
-        f_state = to_host(rec["f_state"][channel])  # [T, L, K]
-        f_cost = to_host(rec["f_cost"][channel])
-        lat_ns = to_host(rec["lat_ns"][channel])  # [T, L, R]
-        lat_prev = to_host(rec["lat_prev"][channel])
-        lat_arc = to_host(rec["lat_arc"][channel])
-        lat_cost = to_host(rec["lat_cost"][channel])
-        pdf_rec = to_host(rec["pdf"][channel])
-        T, L, _ = f_state.shape
-        for t in range(T):
-            is_real = (pdf_rec[t, 0] >= 0).any()
-            for lvl in range(L):
-                # build nodes of this level
-                states = f_state[t, lvl]
-                costs = f_cost[t, lvl]
-                state_slot: Dict[int, int] = {}
-                nodes: Dict[int, int] = {}
-                ncosts: Dict[int, float] = {}
-                nstates: Dict[int, int] = {}
-                cur_frame = frame_idx + (1 if (is_real and lvl >= 0) else 0)
-                for k in np.where(np.isfinite(costs) & (states != dec.S))[0]:
-                    k = int(k)
-                    nodes[k] = lat.add_node(cur_frame)
-                    ncosts[k] = float(costs[k])
-                    nstates[k] = int(states[k])
-                    state_slot.setdefault(int(states[k]), k)
-                    if node_map_out is not None:
-                        node_map_out[(len(node_map_out) // 10**9, t, lvl, k)] = nodes[k]
-                # arcs
-                for r in np.where(
-                    np.isfinite(lat_cost[t, lvl]) & (lat_ns[t, lvl] != dec.S)
-                )[0]:
-                    r = int(r)
-                    ns = int(lat_ns[t, lvl, r])
-                    slot = state_slot.get(ns)
-                    if slot is None:
-                        continue
-                    pslot = int(lat_prev[t, lvl, r])
-                    if pslot < 0 or pslot not in prev_nodes:
-                        continue
-                    total = float(lat_cost[t, lvl, r])
-                    delta = total - prev_costs[pslot]
-                    ai = int(lat_arc[t, lvl, r])
-                    if lvl == 0 and is_real:
-                        if lat_arc_is_m and ai >= 0:
-                            ai = prev_states[pslot] * dec.M + ai
-                        gw, ol, pdf = dec.host_em_arc(ai) if ai >= 0 else (0.0, 0, -1)
+    for t, is_real, levels in frames:
+        for lvl, (slots, states, costs, r_ns, r_prev, r_arc, r_cost) in enumerate(levels):
+            # build nodes of this level
+            state_slot: Dict[int, int] = {}
+            nodes: Dict[int, int] = {}
+            ncosts: Dict[int, float] = {}
+            nstates: Dict[int, int] = {}
+            cur_frame = frame_idx + (1 if (is_real and lvl >= 0) else 0)
+            for k, st, c in zip(slots.tolist(), states.tolist(), costs.tolist()):
+                nodes[k] = lat.add_node(cur_frame)
+                ncosts[k] = float(c)
+                nstates[k] = int(st)
+                state_slot.setdefault(int(st), k)
+                if node_map_out is not None:
+                    node_map_out[(len(node_map_out) // 10**9, t, lvl, k)] = nodes[k]
+            # arcs
+            for ns, pslot, ai, total in zip(r_ns.tolist(), r_prev.tolist(), r_arc.tolist(),
+                                            r_cost.tolist()):
+                slot = state_slot.get(ns)
+                if slot is None:
+                    continue
+                if pslot < 0 or pslot not in prev_nodes:
+                    continue
+                total = float(total)
+                delta = total - prev_costs[pslot]
+                if lvl == 0 and is_real:
+                    if lat_arc_is_m and ai >= 0:
+                        ai = prev_states[pslot] * dec.M + ai
+                    gw, ol, pdf = dec.host_em_arc(ai) if ai >= 0 else (0.0, 0, -1)
+                    lat.add_arc(
+                        LatArc(
+                            prev_nodes[pslot],
+                            nodes[slot],
+                            ol,
+                            gw,
+                            delta - gw,
+                            True,
+                            pdf,
+                        )
+                    )
+                else:
+                    if ai >= 0:
                         lat.add_arc(
                             LatArc(
                                 prev_nodes[pslot],
                                 nodes[slot],
-                                ol,
-                                gw,
-                                delta - gw,
-                                True,
-                                pdf,
+                                int(eps_olabel[ai]),
+                                float(eps_w[ai]),
+                                delta - float(eps_w[ai]),
+                                False,
                             )
                         )
-                    else:
-                        if ai >= 0:
-                            lat.add_arc(
-                                LatArc(
-                                    prev_nodes[pslot],
-                                    nodes[slot],
-                                    int(eps_olabel[ai]),
-                                    float(eps_w[ai]),
-                                    delta - float(eps_w[ai]),
-                                    False,
-                                )
-                            )
-                        else:  # carry
-                            lat.add_arc(
-                                LatArc(prev_nodes[pslot], nodes[slot], 0, delta, 0.0, False)
-                            )
-                prev_nodes, prev_costs, prev_states = nodes, ncosts, nstates
-            if is_real:
-                frame_idx += 1
+                    else:  # carry
+                        lat.add_arc(
+                            LatArc(prev_nodes[pslot], nodes[slot], 0, delta, 0.0, False)
+                        )
+            prev_nodes, prev_costs, prev_states = nodes, ncosts, nstates
+        if is_real:
+            frame_idx += 1
 
     # final costs on last-level nodes
     final_cost = np.asarray(dec.final_cost)

@@ -19,10 +19,11 @@ read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
-from collections import OrderedDict
+from collections import Counter, OrderedDict, deque
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -79,6 +80,158 @@ class ModelConfig:
     frame_shift_seconds: float = 0.03  # output-frame shift (0.01 * subsample)
 
 
+# the most recognizers whose chunks step together.  Every combined step
+# (runtime/recognizer.py `combined_step`) runs at this many rows, the rows no
+# recognizer filled masked, so that its shapes, and with them each product's
+# kernel and rounding, are the same however many streams joined: on an H100
+# a row's features and ll at 3 or 4 rows differ in their last bits from the
+# same row's at 1 (PERF.md §6).  4 holds the concurrency measured (4 C
+# threads, 4 server clients) at the least cost to a stream alone
+STEP_ROWS = 4
+
+
+class StepCombiner:
+    """The turns of one model's recognizers at the device, and flat
+    combining of their steps.
+
+    `turn(group)` holds the model's `turn_lock`, granted in the order it was
+    asked for, and counts a call of `group` (the decoder of the recognizer
+    that asked).  Recognizer calls run in turns, so that only one thread at
+    a time runs Python: threads interleaving their many short torch calls
+    thrash the interpreter lock (PERF.md §6).
+
+    `run(key, group, job, step)`, in a turn, queues `job` under its key (the
+    decoder and the kind of step).  If no step of that key is running, the
+    thread leads.  Its step first lets the calls already waiting for a turn
+    go (they may queue jobs), and lets them go again, round after round,
+    while a round ran a call of `group`: such a call may have buffered
+    audio, and its thread is then about to come back with a chunk.  A round
+    waits only for calls that already asked for a turn, so a thread alone
+    steps at once, and at most 2 * `rows` rounds run.  The step then takes
+    the oldest queued jobs of the key, at most `rows`, runs `step` on them
+    and wakes their threads.  Jobs queued during a step are taken by a new
+    leader, one of their threads.  A recognizer's thread waits for its own
+    job, so a step holds at most one job of each recognizer.  If the step
+    raises, every job of it raises the same exception, and the next step
+    runs as usual.  Waiting, for a turn or a step, is a wait on a Condition
+    over `turn_lock`, which lets the turn go and releases the interpreter
+    lock; only the thread that can go on is woken.  `sizes` counts the
+    steps run by their number of jobs."""
+
+    rows = STEP_ROWS
+
+    def __init__(self, turn_lock):
+        self.turn_lock = turn_lock
+        self._ticket_lock = threading.Lock()
+        self._asked = 0                    # tickets handed out, in the order asked
+        self._now = 0                      # the ticket whose turn is next
+        self._dropped: set = set()         # tickets given up while waiting
+        self._waiting: Dict[int, threading.Condition] = {}  # ticket -> its waiter
+        self._calls: Counter = Counter()   # group -> calls granted a turn
+        self._queues: Dict[object, deque] = {}
+        self._leading: set = set()
+        self.sizes: Counter = Counter()
+
+    @contextlib.contextmanager
+    def turn(self, group=None):
+        """Hold the model's turn, granted in the order asked for, for a
+        call of `group`."""
+        ticket = self._ticket()
+        with self.turn_lock:
+            self._wait_turn(ticket)
+            self._calls[group] += 1
+            yield
+
+    def _ticket(self) -> int:
+        with self._ticket_lock:
+            self._asked += 1
+            return self._asked - 1
+
+    def _wait_turn(self, ticket: int) -> None:
+        """With turn_lock held: wait, letting it go, until `ticket` is the
+        next to go; then pass the next turn on."""
+        if ticket != self._now:
+            cv = self._waiting[ticket] = threading.Condition(self.turn_lock)
+            try:
+                while ticket != self._now:
+                    cv.wait()
+            except BaseException:
+                self._dropped.add(ticket)
+                self._advance()
+                raise
+            finally:
+                del self._waiting[ticket]
+        self._now += 1
+        self._advance()
+
+    def _advance(self) -> None:
+        while self._now in self._dropped:
+            self._dropped.discard(self._now)
+            self._now += 1
+        cv = self._waiting.get(self._now)
+        if cv is not None:
+            cv.notify()
+
+    def _rounds(self, queue, group) -> None:
+        """The leader's rounds (see the class): each waits for the turns
+        asked before it."""
+        for _ in range(2 * self.rows):
+            calls = self._calls[group]
+            self._wait_turn(self._ticket())
+            if self._calls[group] == calls or len(queue) >= self.rows:
+                return
+
+    def run(self, key, group, job, step) -> None:
+        """In a turn: return once a step has run over `job`; raise what it
+        raised."""
+        entry = _Job(job, threading.Condition(self.turn_lock))
+        queue = self._queues.setdefault(key, deque())
+        queue.append(entry)
+        while not entry.done:
+            if key in self._leading:
+                try:
+                    entry.cv.wait()
+                except BaseException:  # an interrupted wait leaves no job behind
+                    if entry in queue:
+                        queue.remove(entry)
+                    raise
+                continue
+            self._leading.add(key)
+            batch = []
+            try:
+                try:
+                    self._rounds(queue, group)
+                except BaseException:
+                    queue.remove(entry)
+                    raise
+                batch = [queue.popleft() for _ in range(min(self.rows, len(queue)))]
+                error = None
+                try:
+                    step([e.job for e in batch])
+                except BaseException as e:  # every job of the step gets it
+                    error = e
+                self.sizes[len(batch)] += 1
+                for e in batch:
+                    e.done, e.error = True, error
+            finally:
+                self._leading.discard(key)
+                # wake the step's threads, and the thread of the oldest job
+                # left, which leads the next step
+                for e in batch + list(queue)[:1]:
+                    e.cv.notify()
+                if not queue and self._queues.get(key) is queue:
+                    del self._queues[key]
+        if entry.error is not None:
+            raise entry.error
+
+
+class _Job:
+    __slots__ = ("job", "cv", "done", "error")
+
+    def __init__(self, job, cv):
+        self.job, self.cv, self.done, self.error = job, cv, False, None
+
+
 class NativeModel:
     """Loaded model: everything Recognizer/BatchPipeline need, with
     factories that build the torch pipeline stages on `device`."""
@@ -126,14 +279,14 @@ class NativeModel:
         self.disambig_tids: list = []
         self.tid2pdf = None
         self._decoder = None
+        self._stream_am = None
         self._grammar_decoders: "OrderedDict[str, object]" = OrderedDict()
         self._decoder_lock = threading.Lock()
-        # recognizers of this model take turns: one chunk step or result at
-        # a time.  Threads interleaving their many short torch calls thrash
-        # the interpreter lock, and 4 of them then decode slower together
-        # than one alone (test_vosk_mt.c in chip_smoke.py phase 14, PERF.md
-        # §6)
+        # recognizers of this model take turns (`combiner.turn(dec)`), and the
+        # chunks that recognizers of one decoder wait with step together
+        # (runtime/recognizer.py)
         self.turn_lock = threading.RLock()
+        self.combiner = StepCombiner(self.turn_lock)
 
     def make_decoder(self, graph=None, optimize_graph=True, frame_step="auto"):
         """A new BatchViterbi over `graph` (the model's by default) with the
@@ -188,6 +341,15 @@ class NativeModel:
         from ..models.tdnnf import TdnnfModel
 
         return TdnnfModel(self.am_config, self.am_params, device=self.device)
+
+    def stream_am(self):
+        """The streaming AM the model's recognizers share (built on first
+        use), as they share its decoder: the combined step runs one AM over
+        every recognizer's rows."""
+        with self._decoder_lock:
+            if self._stream_am is None:
+                self._stream_am = self.make_am()
+            return self._stream_am
 
     def make_batch_am(self):
         """`make_am` for the batch paths (BatchPipeline, FusedPipeline),

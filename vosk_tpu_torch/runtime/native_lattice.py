@@ -311,9 +311,10 @@ def _marshal_and_build(
                 f"core/src/lattice.cc indexes the dense arc views with int32 ids "
                 f"(state * M + m); S={dec.S}, M={dec.M} overflow them")
         rec.M = dec.M
-        dw = np.ascontiguousarray(dec.dense_w.astype(np.float32))
-        do = np.ascontiguousarray(dec.dense_olabel.astype(np.int32))
-        dp = np.ascontiguousarray(dec.dense_pdf.astype(np.int32))
+        # views of the decoder's tables where they are already so typed
+        dw = np.ascontiguousarray(dec.dense_w, dtype=np.float32)
+        do = np.ascontiguousarray(dec.dense_olabel, dtype=np.int32)
+        dp = np.ascontiguousarray(dec.dense_pdf, dtype=np.int32)
         holders += [dw, do, dp]
         rec.dense_w = _ptr(dw, C.c_float)
         rec.dense_olabel = _ptr(do, C.c_int32)

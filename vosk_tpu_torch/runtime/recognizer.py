@@ -12,10 +12,17 @@ rate, bounded streaming memory (old record chunks fold into a frozen
 best-path prefix and a spliced prefix lattice), and the JSON results.
 
 The feature, i-vector, AM and decoder states and the decoder records stay
-on the model's device as B = 1 tensors.  The host reads back once per
-chunk: one small tensor with the chunk's decoded-frame count, the best and
-best-final costs, the best token's trailing-silence word and, with
-i-vectors, the extractor's count of accumulated frames.  Decoded-silence
+on the model's device as one-row tensors.  Recognizers of one decoder that
+wait with a chunk at the same time step it together: the model's
+`StepCombiner` (io/native.py) gives one of their threads every waiting
+chunk, and `combined_step` runs features, i-vectors, AM and decoder once
+over STEP_ROWS rows, the rows nobody filled masked; each recognizer then
+keeps its own rows and does its own bookkeeping.  The step's shapes do not
+depend on how many streams joined, so a stream gets, bit for bit, what it
+gets alone.  The host reads back once per step: one small tensor with each
+row's decoded-frame count, best and best-final costs, best token's
+trailing-silence word and, with i-vectors, the extractor's count of
+accumulated frames.  Decoded-silence
 weighting of the i-vector statistics (reference recognizer.cc:226-237)
 traces back the newest chunk once per `AcceptWaveform`, as the source
 does.  Results read the records they need.  Recognizers of one model share
@@ -37,6 +44,7 @@ import enum
 import functools
 import json
 import math
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -45,21 +53,138 @@ import torch
 from ..graph.builder import build_decoding_graph
 from ..graph.lattice import to_host
 from ..graph.lm import grammar_to_fst
-from ..io.native import NativeModel
+from ..io.native import STEP_ROWS, NativeModel
 from ..io.wav import pcm16_bytes_to_float
 from ..ops.viterbi import split_tsil
 from ..utils.logging import log_warn
+from ..utils.metrics import StageTimers
 from . import endpoint as ep
 from . import jsonout
 
 
 def _in_turn(method):
-    """`method` under its model's turn lock (NativeModel.turn_lock)."""
+    """`method` in its model's turn (`NativeModel.combiner.turn`), a call of
+    the recognizer's decoder."""
     @functools.wraps(method)
     def run(self, *args, **kw):
-        with self.model.turn_lock:
+        with self.model.combiner.turn(self.dec):
             return method(self, *args, **kw)
     return run
+
+
+class _Part:
+    """One recognizer's share of a combined step: its chunk (None for the
+    end-of-stream flush of the AM's right context) and the chunk's valid
+    samples; the step fills in the recognizer's rows of the new states, its
+    records, its values of the host read and the step's stage times."""
+
+    __slots__ = ("rec", "chunk", "n_valid", "states", "records", "head", "times")
+
+    def __init__(self, rec, chunk=None, n_valid=0):
+        self.rec, self.chunk, self.n_valid = rec, chunk, n_valid
+
+
+_IDLE = weakref.WeakKeyDictionary()   # decoder -> the masked rows' states
+
+
+def _idle_rows(rec) -> dict:
+    """States of STEP_ROWS - 1 fresh streams, which pad a step's rows (masked:
+    no samples, no valid frame, as BatchPipeline masks an idle channel); one
+    set per decoder, built on its first step."""
+    idle = _IDLE.get(rec.dec)
+    if idle is None:
+        n = STEP_ROWS - 1
+        idle = _IDLE[rec.dec] = {
+            "feat": rec.ex.init_stream_state(n, rec.chunk_samples),
+            "iv": rec.iv.init_state(n) if rec.iv is not None else None,
+            "am": rec.am.init_stream_state(n, rec.max_feat_frames),
+            "frontier": rec.dec.init_frontier(n),
+        }
+    return idle
+
+
+def _stack(rows, idle):
+    """Batch-first states (nested ones, as the pitch tracker's, too) of the
+    step's recognizers, one row each, then idle rows up to STEP_ROWS."""
+    pad = STEP_ROWS - len(rows)
+    return {k: _stack([r[k] for r in rows], v) if isinstance(v, dict)
+            else torch.cat([r[k] for r in rows] + [v[:pad]])
+            for k, v in idle.items()}
+
+
+def _row(state, i):
+    """Row i of a batch-first state, as a one-row view."""
+    return {k: _row(v, i) if isinstance(v, dict) else v[i:i + 1]
+            for k, v in state.items()}
+
+
+def combined_step(parts: List[_Part]) -> dict:
+    """One step of the device pipeline over the chunks of `parts`, at most
+    STEP_ROWS recognizers of one decoder (all with a chunk, or all flushing
+    the AM's right context at the end of their input): features, i-vectors
+    and AM, then `decode_chunk`, over STEP_ROWS rows, and one host read for
+    every row.  Each part gets its rows of the new states (views), its
+    record rows (copies, so that a recognizer retains what it retains alone)
+    and its values of the read.  Returns the step's batched features, ll,
+    their valid masks and frontier (for tests)."""
+    r = parts[0].rec
+    ex, iv, am, dec, dev = r.ex, r.iv, r.am, r.dec, r.device
+    idle = _idle_rows(r)
+    timers = StageTimers()
+    iv_state = (_stack([p.rec._iv_state for p in parts], idle["iv"])
+                if iv is not None else None)
+    am_state = _stack([p.rec._am_state for p in parts], idle["am"])
+    feats = fvalid = feat_state = ivec = None
+    if parts[0].chunk is not None:
+        S = r.chunk_samples
+        audio = np.zeros((STEP_ROWS, S), np.float32)
+        nsamp = np.zeros(STEP_ROWS, np.int32)
+        for i, p in enumerate(parts):
+            audio[i, :len(p.chunk)] = p.chunk
+            nsamp[i] = p.n_valid
+        with timers.timer("features"):
+            feat_state, feats, fvalid = ex.extract_chunk(
+                _stack([p.rec._feat_state for p in parts], idle["feat"]),
+                torch.from_numpy(audio).to(dev), n_samples=torch.from_numpy(nsamp).to(dev))
+        if iv is not None:
+            with timers.timer("ivector"):
+                # the base features: Kaldi's pipeline keeps pitch out of the
+                # i-vector input
+                iv_state = iv.update(iv_state, feats[..., :ex.base_dim], fvalid)
+                ivec = iv.current(iv_state)
+        with timers.timer("acoustic_model"):
+            am_state, ll, lvalid = am.process_chunk(am_state, feats, fvalid, ivec)
+    else:
+        with timers.timer("acoustic_model"):
+            if iv is not None:
+                iv_state = iv.flush(iv_state)
+                ivec = iv.current(iv_state)
+            am_state, ll, lvalid = am.flush(am_state, ivec)
+    with timers.timer("decoder"):
+        frontier, recs, best, bestf = dec.decode_chunk(
+            _stack([p.rec._frontier for p in parts], idle["frontier"]), ll, lvalid)
+        # the step's one host read, a column a row: decoded frames, best and
+        # best-final cost, the best token's packed trailing-silence word and
+        # the i-vector frames accumulated (float64 holds each exactly)
+        vals = [lvalid.sum(dim=1), best, bestf, dec.best_tsil(frontier)]
+        if iv is not None:
+            vals.append(iv_state["centers_done"])
+        head = to_host(torch.stack([v.double() for v in vals], dim=1))
+        axis = dec.record_lead("T", "B").index("B")
+        for i, p in enumerate(parts):
+            p.states = {
+                "feat": _row(feat_state, i) if feat_state is not None else None,
+                "iv": _row(iv_state, i) if iv_state is not None else None,
+                "am": _row(am_state, i),
+                "frontier": _row(frontier, i),
+            }
+            p.records = {k: v.narrow(axis, i, 1).clone(memory_format=torch.contiguous_format)
+                         for k, v in recs.items()}
+            p.head = head[i]
+    for p in parts:
+        p.times = timers.total_s
+    return {"feats": feats, "fvalid": fvalid, "ll": ll, "lvalid": lvalid,
+            "frontier": frontier}
 
 
 class State(enum.Enum):
@@ -82,6 +207,12 @@ class Recognizer:
         grammar: Optional[str] = None,
         spk_model=None,
     ):
+        # built in the model's turn: it puts the AM and the states on the
+        # device
+        with model.combiner.turn():
+            self._build(model, sample_rate, grammar, spk_model)
+
+    def _build(self, model, sample_rate, grammar, spk_model) -> None:
         self.model = model
         self.device = model.device
         self.sample_rate = float(sample_rate)
@@ -102,7 +233,7 @@ class Recognizer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.ex = model.feature_extractor()
-        self.am = model.make_am()
+        self.am = model.stream_am()
         # the model's shared decoder (v4 or v3 step, lattice records), one
         # per runtime grammar
         self.dec = model.shared_decoder(
@@ -240,18 +371,12 @@ class Recognizer:
     def accept_waveform(self, data) -> bool:
         """Accept PCM data (bytes = s16le, or a numpy int16/float array).
         Returns True when an endpoint (silence) was detected
-        (vosk_api.h:212-221)."""
+        (vosk_api.h:212-221).  Each 0.2 s chunk steps with the chunks that
+        other recognizers of the decoder wait with."""
         if isinstance(data, (bytes, bytearray, memoryview)):
             wave = pcm16_bytes_to_float(bytes(data))
         else:
             wave = np.asarray(data).astype(np.float32)
-        return self._accept(wave)
-
-    def _accept(self, wave: np.ndarray) -> bool:
-        if self.state not in (State.RUNNING, State.INITIALIZED):
-            self._clean_up()
-        self.state = State.RUNNING
-
         if abs(self.sample_rate - self.model_rate) > 1e-6:
             # stateful band-limited resampler on the host (the reference's
             # per-stream LinearResample); phase carries across calls
@@ -262,6 +387,12 @@ class Recognizer:
                     self.sample_rate, self.model_rate
                 )
             wave = self._resampler.process(wave)
+        return self._accept(wave)
+
+    def _accept(self, wave: np.ndarray) -> bool:
+        if self.state not in (State.RUNNING, State.INITIALIZED):
+            self._clean_up()
+        self.state = State.RUNNING
 
         if self.spk_model is not None:
             self._spk_feats.append(wave.copy())
@@ -278,48 +409,33 @@ class Recognizer:
         return self._endpoint_check()
 
     def _process_chunk(self, chunk: np.ndarray, n_valid: int) -> None:
-        S = self.chunk_samples
-        if len(chunk) < S:
-            chunk = np.concatenate([chunk, np.zeros(S - len(chunk), np.float32)])
         self.metrics.add_audio(n_valid / self.model_rate)
-        with self.metrics.timer("features"):
-            self._feat_state, feats, fvalid = self.ex.extract_chunk(
-                self._feat_state,
-                torch.from_numpy(np.ascontiguousarray(chunk[None, :])).to(self.device),
-                n_samples=torch.full((1,), n_valid, dtype=torch.int32,
-                                     device=self.device),
-            )
-        ivec = None
-        if self.iv is not None:
-            with self.metrics.timer("ivector"):
-                # the base features: Kaldi's pipeline keeps pitch out of the
-                # i-vector input
-                self._iv_state = self.iv.update(
-                    self._iv_state, feats[..., :self.ex.base_dim], fvalid)
-                ivec = self.iv.current(self._iv_state)
-        with self.metrics.timer("acoustic_model"):
-            self._am_state, ll, lvalid = self.am.process_chunk(
-                self._am_state, feats, fvalid, ivec
-            )
-        self._decode(ll, lvalid)
+        self._step(_Part(self, chunk, n_valid))
 
-    def _decode(self, ll, lvalid) -> None:
-        with self.metrics.timer("decoder"):
-            self._frontier, recs, best, bestf = self.dec.decode_chunk(
-                self._frontier, ll, lvalid
-            )
-            # the chunk's one host read: decoded frames, best and best-final
-            # cost, the best token's packed trailing-silence word and the
-            # i-vector frames accumulated (float64 holds each exactly)
-            vals = [
-                lvalid[0].sum().double(), best[0].double(), bestf[0].double(),
-                self.dec.best_tsil(self._frontier)[0].double(),
-            ]
-            if self.iv is not None:
-                vals.append(self._iv_state["centers_done"][0].double())
-            head = to_host(torch.stack(vals))
+    def _step(self, part: _Part) -> None:
+        """Step `part` (this recognizer's chunk, or its AM flush) with the
+        recognizers of its decoder that wait with theirs (`combined_step`
+        through the model's StepCombiner), then take its rows (`_take`).
+        Its stage timers get the times of the step it took part in."""
+        kind = "flush" if part.chunk is None else "chunk"
+        self.model.combiner.run((self.dec, kind), self.dec, part, combined_step)
+        self._take(part)
+
+    def _take(self, part: _Part) -> None:
+        """This recognizer's rows of a step it took part in: its states,
+        records, host values and stage times; then its bookkeeping (frame
+        counts, costs, trailing silence, record fold)."""
+        for stage, seconds in part.times.items():
+            self.metrics.add(stage, seconds)
+        st = part.states
+        if st["feat"] is not None:
+            self._feat_state = st["feat"]
+        if st["iv"] is not None:
+            self._iv_state = st["iv"]
+        self._am_state, self._frontier = st["am"], st["frontier"]
+        head = part.head
         n = int(head[0])
-        self._records.append(recs)
+        self._records.append(part.records)
         self._rec_frames.append(n)
         self._utt_frames += n
         self._best_cost = float(np.float32(head[1]))
@@ -473,16 +589,15 @@ class Recognizer:
             # online pitch at InputFinished
             self._pending = np.concatenate(
                 [self._pending, np.zeros(self.ex.flush_pad_samples, np.float32)])
-        if len(self._pending) > 0:
-            self._process_chunk(self._pending, len(self._pending))
-            self._pending = np.zeros(0, np.float32)
+        # steps take chunks of chunk_samples: the resampler's tail and the
+        # pitch pad may make the rest longer
+        S = self.chunk_samples
+        for pos in range(0, len(self._pending), S):
+            piece = self._pending[pos: pos + S]
+            self._process_chunk(piece, len(piece))
+        self._pending = np.zeros(0, np.float32)
         if input_finished and not self._flushed:
-            ivec = None
-            if self.iv is not None:
-                self._iv_state = self.iv.flush(self._iv_state)
-                ivec = self.iv.current(self._iv_state)
-            self._am_state, ll, lvalid = self.am.flush(self._am_state, ivec)
-            self._decode(ll, lvalid)
+            self._step(_Part(self))
             self._flushed = True
 
     # ---------------------------------------------------------- endpoint
@@ -493,9 +608,11 @@ class Recognizer:
         at recognizer.cc:318)."""
         if self._utt_frames == 0:
             return False
-        if self.iv is not None and self._silence_weight != 1.0 and self._records:
+        if (self.iv is not None and self._silence_weight != 1.0 and self._records
+                and self._iv_centers_done > self._iv_frames_weighted):
             # silence weighting needs a frame alignment; a traceback over
-            # just the newest chunk is O(chunk), not O(utterance)
+            # just the newest chunk is O(chunk), not O(utterance), and only
+            # when the extractor has frames not weighted yet
             _, _, pdfs = self.dec.traceback_with_frames(
                 [self._records[-1]], self._frontier, 0, use_final=False,
                 at_start=False, init_states=self._last_chunk_init_states(),

@@ -35,6 +35,11 @@ class StageTimers:
             self.total_s[stage] += time.perf_counter() - t0
             self.count[stage] += 1
 
+    def add(self, stage: str, seconds: float) -> None:
+        """One call of `stage` that took `seconds` (a step timed elsewhere)."""
+        self.total_s[stage] += seconds
+        self.count[stage] += 1
+
     def add_audio(self, seconds: float) -> None:
         self.audio_seconds += seconds
 

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vosk_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rescoring-only | --pitch-only | --training-only | --csr-only
-                           | --mesh-only | --adaptive-only | --threads-only]
+                           | --mesh-only | --adaptive-only | --threads-only | --capture-only]
 
 (`--rescoring-only` / `--pitch-only` / `--training-only` / `--csr-only` /
 `--mesh-only` / `--adaptive-only` build the kernels and run phase 12 / 13 /
@@ -11,9 +11,10 @@ model and phase 10's directory first, `--mesh-only` phase 4's model and
 phase 11's v3 decoder, `--adaptive-only` phase 4's model; `--mesh-only`
 leaves out 17e's nnet3 part, which runs in phase 9.  `--threads-only` runs
 phase 7's long stream and phase 14 (b0), (b) and (d) on phase 4's model,
-with test_vosk_mt.c 5 times, each held to its floor.)  Phases, each of
-which raises on failure
-(the script then exits non-zero and prints no result line):
+with test_vosk_mt.c 5 times, each held to its floor.  `--capture-only` runs
+phases 4, 5, 7 and 8 on phase 4's model with phase 19's checks in them.)
+Phases, each of which raises on failure (the script then exits non-zero and
+prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernel library (every csrc/*.cu, one nvcc each, in
      parallel, linked into one .so) and print ptxas's registers, shared
@@ -51,9 +52,11 @@ which raises on failure
      plain pool.  expand's bound counts 4 bytes a candidate's key and 8 a
      real arc's payload (the count before PR 15, all three planes, is
      printed beside it); then one decode_chunk at B = 32
-     under torch.profiler: its device kernels by name with counts per
-     frame, where the frame step may launch only expand_v4 and select_v4's
-     two kernels, at most 3 a frame, and no sort or gather;
+     under torch.profiler, replayed from its captured program and through
+     the eager body: its device kernels by name with counts per frame,
+     where the frame step may launch only expand_v4 and select_v4's two
+     kernels, at most 3 a frame, and no sort or gather (a replay adds at
+     most CHUNK_COPIES copies a chunk);
   5. serve 8 requests of 3 s seeded noise through BatchRecognizer in 0.2 s
      pieces, with every launch count zeroed just before; every Result()
      must be JSON with a text field, both frame-step kernels must have
@@ -278,6 +281,24 @@ which raises on failure
      cost; (d) expand_v4 and select_v4 against their plain versions at
      each rung on a real frame and under load, times, bounds and
      select_v4's torch.sort yardstick.
+ 19. (run inside phases 4, 8, 18, 10 and 14) the captured chunk programs:
+     v4 decode_chunk on the card replays one CUDA graph per chunk shape
+     (ops/viterbi.py `_ChunkProgram`).  Captured against the eager body
+     (`decode_chunk_eager`), bit for bit over chained chunks, every
+     chunk's frontier, 5 record planes, best and best-final kept to the end
+     (`captured_vs_eager`): phase 4's decoder on its light chunks, from
+     `loaded_frame` and at the combined recognizer step's STEP_ROWS = 4
+     rows; the rungs K = 1024 / 2048 / 4096 from the loaded frontier cut
+     to each (18c); phase 10's split (M = 266) and grammar (K = 124)
+     decoders; phase 14's exact3 decoders at B = 1 and from the loaded
+     frontier at B = 32.  Host ms a decode_chunk call, captured against
+     eager, interleaved (`chunk_times`), with the device memory a program
+     of the shape holds: B = 32 and B = 4 at T = 7, B = 32 at T = 17 and
+     the K = 1024 rung.  run_scan eager against captured, interleaved (ms a
+     decoded frame, best bit-equal), and one profiled drive of each (idle
+     share).  The serving, streaming, run_scan and run_adaptive paths must
+     replay (`read_replays`); run_adaptive's counts stay one expand_v4 and
+     one select_v4 a decoded frame.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -286,6 +307,7 @@ nothing is downloaded.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -365,11 +387,13 @@ def check_no_spills(build_log, kernels=("expand_v4_kernel", "gather_rows_kernel"
 
 
 def zero_counts():
-    """Every kernel's launch count to 0, just before a path is driven."""
-    from vosk_tpu_torch.ops.frame_step import expand_v4, select_v4
+    """Every kernel's launch count, and the chunk programs' capture and
+    replay counts, to 0, just before a path is driven."""
+    from vosk_tpu_torch.ops.frame_step import GRAPH_COUNTS, expand_v4, select_v4
     from vosk_tpu_torch.ops.gather import gather_rows
 
     expand_v4.launches = select_v4.launches = gather_rows.launches = 0
+    GRAPH_COUNTS.update(captures=0, replays=0)
 
 
 V4_KERNELS = ("expand_v4", "select_v4")  # the v4 step's kernels
@@ -388,6 +412,22 @@ def read_counts(what, need=V4_KERNELS):
     if any(counts[k] <= 0 for k in need) or any(counts[k] for k in counts if k not in need):
         raise AssertionError(f"{what} did not launch exactly the kernels {need}: {counts}")
     return counts
+
+
+REPLAYS = {}  # {path: captured chunk programs replayed}, its first run (read_replays)
+
+
+def read_replays(what, key) -> int:
+    """The captured chunk programs replayed since zero_counts() (the first
+    reading of each key kept in REPLAYS); raises unless the path replayed
+    one."""
+    from vosk_tpu_torch.ops.frame_step import GRAPH_COUNTS
+
+    n = GRAPH_COUNTS["replays"]
+    REPLAYS.setdefault(key, n)
+    if n <= 0:
+        raise AssertionError(f"{what} replayed no captured chunk program: {GRAPH_COUNTS}")
+    return n
 
 
 def on_device(records) -> bool:
@@ -632,38 +672,172 @@ def phase_frame_step(torch, name, dec, fr, ll, valid):
     return out
 
 
-def phase_profile(torch, dec, fr, ll, valid):
-    """One decode_chunk at B = 32 under torch.profiler: device kernels by
-    name with launches per frame.  The frame step may launch only the
-    expand_v4 and select_v4 kernels, at most 3 a frame, and no sort or
-    gather; the rest (the chunk-end reductions) must not repeat per frame.
-    Returns {kernel name: launches per frame}."""
+CHUNK_COPIES = 15  # a replay's copies: 5 in (frontier, scores, mask), 10 out
+
+
+def profile_rows(torch, fn):
+    """fn() after a warm-up call, under torch.profiler: {device row name:
+    (launches, device us)}."""
     from torch.profiler import ProfilerActivity, profile
 
-    T = ll.shape[1]
-    dec.decode_chunk(fr, ll, valid)  # warm-up
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec.decode_chunk(fr, ll, valid)
+        fn()
         torch.cuda.synchronize()
     rows = {}  # device kernel, copy or memset: (launches, device us)
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             c, us = rows.get(ev.name, (0, 0.0))
             rows[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
-    if not rows:
-        raise AssertionError("the profiler recorded no device kernel")
-    step = {k: v for k, v in rows.items() if "expand_v4" in k or "select_v4" in k}
-    per_frame = {k: c / T for k, (c, _) in rows.items()}
-    log(f"profiled decode_chunk B={fr['state'].shape[0]} T={T}: device kernels (launches per "
-        f"frame, device us per frame): " + json.dumps(
-            {k: [per_frame[k], round(us / T, 3)] for k, (c, us) in sorted(rows.items())}))
-    bad = [k for k in rows if "sort" in k.lower() or "gather" in k.lower()]
-    repeats = [k for k, (c, _) in rows.items() if k not in step and c >= T]
-    if bad or repeats or not step or sum(c for c, _ in step.values()) > 3 * T:
-        raise AssertionError(f"the frame step launched more than its kernels: sort/gather "
-                             f"{bad}, per-frame others {repeats}, frame-step kernels {step}")
-    return per_frame
+    return rows
+
+
+def phase_profile(torch, dec, fr, ll, valid):
+    """One decode_chunk at B = 32 under torch.profiler, as a replay of its
+    captured program, then the same chunk through the eager body
+    (decode_chunk_eager): device kernels by name with launches per frame.
+    In both the frame step may launch only the expand_v4 and select_v4
+    kernels, at most 3 a frame, and no sort or gather; the rest (the
+    chunk-end reductions, and a replay's copies in and out, at most
+    CHUNK_COPIES) must not repeat per frame.  Returns the replay's {kernel
+    name: launches per frame}."""
+    T = ll.shape[1]
+    out = {}
+    for way, fn in (("replayed", dec.decode_chunk), ("eager", dec.decode_chunk_eager)):
+        rows = profile_rows(torch, lambda: fn(fr, ll, valid))
+        if not rows:
+            raise AssertionError(f"the profiler recorded no device kernel ({way})")
+        step = {k: v for k, v in rows.items() if "expand_v4" in k or "select_v4" in k}
+        copies = {k: v for k, v in rows.items() if k.startswith(("Memcpy", "Memset"))}
+        per_frame = {k: c / T for k, (c, _) in rows.items()}
+        log(f"profiled decode_chunk ({way}) B={fr['state'].shape[0]} T={T}: device rows "
+            f"(launches per frame, device us per frame): " + json.dumps(
+                {k: [per_frame[k], round(us / T, 3)] for k, (c, us) in sorted(rows.items())}))
+        bad = [k for k in rows if "sort" in k.lower() or "gather" in k.lower()]
+        repeats = [k for k, (c, _) in rows.items()
+                   if k not in step and k not in copies and c >= T]
+        n_copies = sum(c for c, _ in copies.values())
+        if bad or repeats or not step or sum(c for c, _ in step.values()) > 3 * T \
+                or n_copies > (CHUNK_COPIES if way == "replayed" else 0):
+            raise AssertionError(f"the frame step ({way}) launched more than its kernels: "
+                                 f"sort/gather {bad}, per-frame others {repeats}, frame-step "
+                                 f"kernels {step}, copies {copies}")
+        out[way] = per_frame
+    return out["replayed"]
+
+
+# ------------------------------------------------------------------ phase 19
+
+CAPTURE_REPS = 20    # 19's chunk times: calls a timing, ended by one synchronize
+CAPTURE_ROUNDS = 3   # 19's interleaved rounds (eager, captured, captured, eager)
+CAPTURE_SECONDS = {}  # phase 19's checks: seconds each, run inside the phases named
+
+
+def captured_vs_eager(torch, name, dec, chunks, valid, fr0=None):
+    """Phase 19: decode_chunk (the captured program of the chunks' shape,
+    captured by the first call of a new shape) against decode_chunk_eager,
+    bit for bit, over the chained chunks of dec from fr0 (a fresh frontier
+    by default): every chunk's frontier, 5 record planes, best and
+    best-final, all kept to the end, so that a returned buffer a later
+    replay overwrote would show.  Every chunk must replay."""
+    from vosk_tpu_torch.ops.frame_step import GRAPH_COUNTS
+
+    t0 = time.perf_counter()
+    B = chunks[0].shape[0]
+
+    def run(fn):
+        fr = fr0 if fr0 is not None else dec.init_frontier(B)
+        kept = []
+        for ll, v in zip(chunks, valid):
+            fr, rec, best, bestf = fn(fr, ll, v)
+            kept.append({**{f"frontier.{k}": x for k, x in fr.items()}, **rec, "best": best,
+                         "best_final": bestf})
+        torch.cuda.synchronize()
+        return kept
+
+    r0, c0 = GRAPH_COUNTS["replays"], GRAPH_COUNTS["captures"]
+    got = run(dec.decode_chunk)
+    replays, captures = GRAPH_COUNTS["replays"] - r0, GRAPH_COUNTS["captures"] - c0
+    want = run(dec.decode_chunk_eager)
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in b:
+            if not torch.equal(bits(torch, a[k]), bits(torch, b[k])):
+                raise AssertionError(f"19 {name}: chunk {i} {k}: captured != eager")
+    if replays != len(chunks):
+        raise AssertionError(f"19 {name}: {replays} replays for {len(chunks)} chunks")
+    live = torch.isfinite(got[-1]["frontier.cost"]).sum(1)
+    CAPTURE_SECONDS[name] = time.perf_counter() - t0
+    log(f"19 {name}: B={B} K={dec.K} R={dec.R} M={dec.M} ({dec.pack} rows), chunks "
+        f"{sorted({tuple(c.shape) for c in chunks})} x {len(chunks)}: captured = eager bit for "
+        f"bit (frontier, 5 record planes, best, best-final of every chunk, kept to the end); "
+        f"{replays} replays, {captures} captures; live tokens after {live.min().item()}-"
+        f"{live.max().item()}; {CAPTURE_SECONDS[name]:.3f} s")
+
+
+def seeded_chunks(torch, dec, batch, P, seed, n=2, T=7, scale=2.0):
+    """n chunks [batch, T, P] of seeded N(0, scale^2) scores on dec's device,
+    with a masked hole in channel 0 of the first, and their valid masks."""
+    g = torch.Generator().manual_seed(seed)
+    chunks = [(torch.randn((batch, T, P), generator=g) * scale).to(dec.device)
+              for _ in range(n)]
+    valid = [torch.ones((batch, T), dtype=torch.bool, device=dec.device) for _ in range(n)]
+    valid[0][0, 2:4] = False
+    return chunks, valid
+
+
+def spread(ms) -> str:
+    ms = sorted(ms)
+    return f"{statistics.median(ms):.6f} [{ms[0]:.6f}, {ms[-1]:.6f}]"
+
+
+def verdict(fast, slow) -> str:
+    """Whether every reading of `fast` is below every one of `slow`."""
+    return ("captured faster in every reading" if max(fast) < min(slow) else
+            "captured slower in every reading" if min(fast) > max(slow) else
+            "the spreads overlap: unresolved")
+
+
+def chunk_times(torch, name, dec, fr, ll, valid):
+    """Phase 19: host ms a decode_chunk call, captured against eager, in
+    CAPTURE_ROUNDS rounds of (eager, captured, captured, eager), each
+    CAPTURE_REPS calls from the same frontier ended by one synchronize:
+    median [min, max]; and the device memory that a chunk program of this
+    shape holds (its static tensors, scratch and graph pool) on a fresh
+    clone of dec, beside the eager chunk's peak."""
+    t0 = time.perf_counter()
+    ways = {"eager": dec.decode_chunk_eager, "captured": dec.decode_chunk}
+    ways["captured"](fr, ll, valid)  # the program of this shape exists
+    ts = {w: [] for w in ways}
+    for _ in range(CAPTURE_ROUNDS):
+        for w in ("eager", "captured", "captured", "eager"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(CAPTURE_REPS):
+                ways[w](fr, ll, valid)
+            torch.cuda.synchronize()
+            ts[w].append((time.perf_counter() - t1) / CAPTURE_REPS * 1e3)
+    mem = {}
+    c = dec.clone_with_max_active(dec.K)  # no program yet
+    for w, fn in (("eager", c.decode_chunk_eager), ("captured", c.decode_chunk)):
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        fn(fr, ll, valid)
+        torch.cuda.synchronize()
+        mem[w] = ((torch.cuda.max_memory_allocated() - a0) / 2**20,
+                  (torch.cuda.memory_allocated() - a0) / 2**20,
+                  (torch.cuda.memory_reserved() - r0) / 2**20)
+    del c
+    CAPTURE_SECONDS[f"{name} times"] = time.perf_counter() - t0
+    log(f"19 decode_chunk {name} (B={ll.shape[0]} T={ll.shape[1]} K={dec.K} R={dec.R}), host ms "
+        f"a call, {CAPTURE_ROUNDS} rounds of (eager, captured, captured, eager) x "
+        f"{CAPTURE_REPS} calls: eager {spread(ts['eager'])}, captured "
+        f"{spread(ts['captured'])}; {verdict(ts['captured'], ts['eager'])}; device memory "
+        f"(MiB: peak over the call, held after it, reserved after it) eager "
+        f"{[round(x, 3) for x in mem['eager']]}, first captured call (the capture) "
+        f"{[round(x, 3) for x in mem['captured']]} ({SMI})")
+    return ts
 
 
 def phase_model(torch, dev, tmp):
@@ -780,6 +954,25 @@ def phase_decoder(torch, bm):
         f"{dec.params.acoustic_scale}: frontier + 5 record planes bit-equal kernels / "
         f"plain / CPU; live tokens min {live.min().item()} max {live.max().item()}; chunk "
         f"seconds kernels {[round(x, 4) for x in k_t]} plain {[round(x, 4) for x in p_t]}")
+    # phase 19 on this decoder: captured against eager over the light chunks,
+    # from the loaded frontier (flat scores keep it at max-active) and at the
+    # combined recognizer step's STEP_ROWS rows; chunk times at B = 32 and 4
+    from vosk_tpu_torch.io.native import STEP_ROWS
+
+    dchunks = [c.to(dec.device) for c in chunks]
+    dvalid = [valid.to(dec.device)] * len(chunks)
+    captured_vs_eager(torch, "light chunks", dec, dchunks, dvalid)
+    lfr, _ = loaded_frame(torch, bm)
+    flat = [(torch.randn((B, T, P), generator=g) * 0.1).to(dec.device) for _ in range(2)]
+    captured_vs_eager(torch, "from the loaded frontier", dec, flat, dvalid[:2], fr0=lfr)
+    captured_vs_eager(torch, f"combined step B={STEP_ROWS}", dec,
+                      [c[:STEP_ROWS] for c in dchunks], [v[:STEP_ROWS] for v in dvalid])
+    kfr = {k: v.to(dec.device) for k, v in k_fr.items()}
+    chunk_times(torch, "B=32 T=7", dec, kfr, dchunks[2], dvalid[2])
+    chunk_times(torch, f"combined step B={STEP_ROWS} T=7", dec,
+                {k: v[:STEP_ROWS].contiguous() for k, v in kfr.items()},
+                dchunks[2][:STEP_ROWS], dvalid[2][:STEP_ROWS])
+    del lfr, flat
     # one real frame: the frontier after 2 chunks and T-1 frames of the third
     fr = {k: v.to(dec.device) for k, v in k_fr.items()}
     ll = chunks[2].to(dec.device)
@@ -869,6 +1062,8 @@ def phase_serving(torch, bm, need=V4_KERNELS):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = read_counts("the serving path", need)
+    if need == V4_KERNELS:
+        read_replays("the serving path", "serving")
     if not on_card:
         raise AssertionError("frontier/records were not CUDA tensors")
     if len(results) < N_REQUESTS or not all(isinstance(x.get("text"), str) for x in results):
@@ -988,6 +1183,7 @@ def phase_streaming(torch, path):
     res_alt = check_schema(rec.FinalResult(), "alternatives")
     torch.cuda.synchronize()
     launches = read_counts("the streaming path")
+    read_replays("the streaming path (combined steps)", "streaming")
     peak = torch.cuda.max_memory_allocated() / 2**30
     # the same 10.5 s stream through the plain versions (single-threaded, so
     # swapping the shared decoder's step ops is safe): identical JSON
@@ -1038,8 +1234,24 @@ def bench_inputs(torch, pipe, snr=2.0):
     return n_chunks, audio, ll_bias
 
 
+@contextlib.contextmanager
+def eager_decode(dec):
+    """A context in which dec's decode_chunk is its eager body (phase 19's
+    comparisons drive a path both ways)."""
+    dec.decode_chunk = dec.decode_chunk_eager
+    try:
+        yield
+    finally:
+        del dec.decode_chunk
+
+
 def phase_run_scan(torch, bm):
-    """bench.py's path at its operating point, B = 32."""
+    """bench.py's path at its operating point, B = 32; then phase 19 on it:
+    run_scan with decode_chunk eager against captured, interleaved (eager,
+    captured, captured, eager) CAPTURE_ROUNDS times (ms a decoded frame,
+    median and range, the same best costs), one profiled drive of each
+    (`trace_drive`: device busy time and idle share), and decode_chunk's
+    chunk times at T = 17."""
     from vosk_tpu_torch.runtime.pipeline import FusedPipeline
 
     model = bm._model
@@ -1057,6 +1269,7 @@ def phase_run_scan(torch, bm):
     best_h = best.cpu()
     dt = time.perf_counter() - t0
     launches = read_counts("run_scan")
+    read_replays("run_scan", "run_scan")
     if not torch.isfinite(best_h).all():
         raise AssertionError(f"run_scan best costs are not finite: {best_h}")
     live = torch.isfinite(recs["f_cost"]).sum(-1).float()
@@ -1068,6 +1281,46 @@ def phase_run_scan(torch, bm):
         f"{audio_s / dt:.3f} audio-s/s, {dt / frames * 1e3:.3f} ms per decoded frame; "
         f"live tokens p50 {live.median().item():.0f} (min {live.min().item():.0f}, "
         f"max {live.max().item():.0f}); {count_line(launches)}")
+    del recs
+
+    t19 = time.perf_counter()
+    dec = pipe.dec
+
+    def drive(eager):
+        state = pipe.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            with eager_decode(dec):
+                _, _, b = pipe.run_scan(state, audio, ll_bias=ll_bias)
+        else:
+            _, _, b = pipe.run_scan(state, audio, ll_bias=ll_bias)
+        b = b.cpu()
+        return time.perf_counter() - t0, b
+
+    runs = {"eager": [], "captured": []}
+    for _ in range(CAPTURE_ROUNDS):
+        for way in ("eager", "captured", "captured", "eager"):
+            dt, b = drive(way == "eager")
+            if not torch.equal(bits(torch, b), bits(torch, best_h)):
+                raise AssertionError(f"19 run_scan ({way}): best differs from phase 8's drive")
+            runs[way].append(dt / frames * 1e3)
+    log(f"19 run_scan B={B}, {n_chunks} chunks x {pipe.T} frames, ms per decoded frame, "
+        f"{CAPTURE_ROUNDS} rounds of (eager, captured, captured, eager): eager "
+        f"{spread(runs['eager'])} {runs['eager']}, captured {spread(runs['captured'])} "
+        f"{runs['captured']}; {verdict(runs['captured'], runs['eager'])}; best bit-equal to "
+        f"phase 8's in every drive ({SMI})")
+    for way in ("eager", "captured"):
+        tr = trace_drive(torch, lambda: drive(way == "eager"))
+        med = statistics.median(runs[way]) * frames
+        log(f"19 run_scan {way} profiled: span {tr['span_ms']:.3f} ms (unprofiled median "
+            f"{med:.3f}), device busy {tr['busy_ms']:.3f} ms (expand_v4 + select_v4 "
+            f"{tr['step_ms']:.3f}), idle share {tr['idle']:.4f} of the span and "
+            f"{1 - tr['busy_ms'] / med:.4f} of the unprofiled median; {tr['events']} device "
+            f"events, the most device time [ms, events]: {json.dumps(tr['top'])} ({SMI})")
+    chunk_times(torch, f"run_scan chunk B={B} T={pipe.T}", dec, state["frontier"],
+                ll_bias[0], torch.ones((B, pipe.T), dtype=torch.bool, device=dec.device))
+    CAPTURE_SECONDS["run_scan"] = time.perf_counter() - t19
     return launches
 
 
@@ -1249,6 +1502,9 @@ def phase_adaptive(torch, bm):
                 launches = launches or counts
                 if counts["expand_v4"] != frames or counts["select_v4"] != frames:
                     raise AssertionError(f"run_adaptive launched {counts} over {frames} frames")
+                if read_replays("run_adaptive", "run_adaptive") != n_chunks:
+                    raise AssertionError(f"run_adaptive replayed {REPLAYS} over {n_chunks} "
+                                         f"chunks")
             if not torch.isfinite(best).all():
                 raise AssertionError(f"run_adaptive={adaptive}: best costs are not finite")
             name = "run_adaptive" if adaptive else "run_scan"
@@ -1405,6 +1661,11 @@ def phase_adaptive(torch, bm):
         log(f"18c rung K={d.K}: {ADAPTIVE_T} frames from the loaded frontier cut to the rung "
             f"(live after {live.min().item()}-{live.max().item()}): frontier and 5 record "
             f"planes bit-equal kernels / plain / CPU, slots sorted by cost")
+        captured_vs_eager(torch, f"rung K={d.K} from the loaded frontier", d, [ll, ll],
+                          [valid, valid], fr0={k: v.to(d.device) for k, v in fr0.items()})
+        if d.K == 1024:
+            chunk_times(torch, f"rung K={d.K}", d,
+                        {k: v.to(d.device) for k, v in outs["kernels"][0].items()}, ll, valid)
         # a real frame: the rung's fresh frontier after ADAPTIVE_T - 1 frames
         fr, _, _, _ = d.decode_chunk(d.init_frontier(B), ll[:, :ADAPTIVE_T - 1],
                                      valid[:, :ADAPTIVE_T - 1])
@@ -1488,8 +1749,9 @@ def phase_v3_decoder(torch, pipe):
 
 
 def phase_v3_profile(torch, dec, chunks, valid):
-    """One v3 decode_chunk at B = 32 under torch.profiler: device kernels
-    by name, launches and device us per frame; the sort kernels' share."""
+    """One v3 decode_chunk at B = 32 under torch.profiler, in
+    PROFILE_WINDOWS windows (`most_seen`): device kernels by name,
+    launches and device us per frame; the sort kernels' share."""
     from torch.profiler import ProfilerActivity, profile
 
     T = chunks[0].shape[1]
@@ -1497,25 +1759,23 @@ def phase_v3_profile(torch, dec, chunks, valid):
     ll, v = chunks[0].to(dec.device), valid.to(dec.device)
     dec.decode_chunk(fr, ll, v)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec.decode_chunk(fr, ll, v)
-        torch.cuda.synchronize()
-    rows = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            c, us = rows.get(ev.name, (0, 0.0))
-            rows[ev.name] = (c + 1, us + ev.time_range.elapsed_us())
-    if not rows:
-        raise AssertionError("the profiler recorded no device kernel")
-    total = sum(us for _, us in rows.values()) / T
-    sort_us = sum(us for k, (_, us) in rows.items() if "sort" in k.lower()) / T
-    gather = {k: c / T for k, (c, _) in rows.items() if "gather_rows" in k}
+    windows = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dec.decode_chunk(fr, ll, v)
+            torch.cuda.synchronize()
+        windows.append(frame_kernels(torch, prof, T))
+    rows, varied = most_seen(windows)
+    total = sum(us for _, us in rows.values())
+    sort_us = sum(us for k, (_, us) in rows.items() if "sort" in k.lower())
+    gather = {k: c for k, (c, _) in rows.items() if "gather_rows" in k}
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:12]
-    log(f"profiled v3 decode_chunk B={B} T={T}: {sum(c for c, _ in rows.values()) / T:.1f} "
+    log(f"profiled v3 decode_chunk B={B} T={T}: {sum(c for c, _ in rows.values()):.1f} "
         f"device events and {total:.3f} us of device rows a frame; sort kernels "
         f"{sort_us:.3f} us a frame ({sort_us / total:.1%}); gather_rows launches a frame "
-        f"{json.dumps(gather)}; largest rows (launches, us a frame): " + json.dumps(
-            {k[:60]: [c / T, round(us / T, 3)] for k, (c, us) in top}))
+        f"{json.dumps(gather)}; rows whose launches a frame varied over {PROFILE_WINDOWS} "
+        f"windows {json.dumps({k[:60]: v for k, v in varied.items()})}; largest rows "
+        f"(launches, us a frame): " + json.dumps({k[:60]: v for k, v in top}))
     if sum(gather.values()) != 2 + 2 * dec.eps_iters:
         raise AssertionError(f"profiled v3 frame launched gather {gather}")
     return {"device_us": total, "sort_us": sort_us}
@@ -1662,9 +1922,11 @@ def phase_v3(torch, bm, tmp):
 
 
 def phase_kaldi(torch, tmp):
-    """Phase 9: the full-width Kaldi directory with i-vectors, streaming
-    and batch.  Returns (streaming launches, batch launches, kernel shapes
-    of the path)."""
+    """Phase 9: the full-width Kaldi directory with i-vectors, streaming;
+    then batch (and 17e) on the same AM exported without the graft over a
+    graph of RESCORE_STATES states, as phase 12 (b) serves (a second load
+    of the 2M-state HCLG took 86-91 s of the run).  Returns (streaming
+    launches, batch launches, kernel shapes of the path, 17e's launches)."""
     import numpy as np
 
     import vosk_tpu_torch
@@ -1744,9 +2006,17 @@ def phase_kaldi(torch, tmp):
     gc.collect()
 
     t0 = time.perf_counter()
-    bm = vosk_tpu_torch.BatchModel(str(plain), max_batch_size=B, device="cuda")
+    m = benchdata.make_bench_model(num_states=RESCORE_STATES, seed=SEED, device="cpu")
+    kaldidata.one_phone_per_pdf(m)
+    small = Path(tmp) / "kaldi_batch"
+    export_kaldi_dir(m, small)
+    del m
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bm = vosk_tpu_torch.BatchModel(str(small), max_batch_size=B, device="cuda")
     torch.cuda.synchronize()
-    log(f"kaldi batch: BatchModel load (no i-vector graft) {time.perf_counter() - t0:.3f} s")
+    log(f"kaldi batch: export (nnet3 + {RESCORE_STATES}-state HCLG.fst) {t_export:.3f} s; "
+        f"BatchModel load (no i-vector graft) {time.perf_counter() - t0:.3f} s")
     batch_launches = phase_serving(torch, bm)
     mesh_launches = phase_mesh_nnet3(torch, bm, tmp)
     del bm
@@ -2411,6 +2681,8 @@ def phase_exact3(torch, tmp):
         f"{count_line(l_stream)}; text {json.loads(outs[-1])['text'][:40]!r}")
     times = {"exact3_b1": phase_frame_step(torch, "exact3_b1", dec, *real_frame(
         torch, dec, EXACT3_PDFS, SEED + 15))}
+    captured_vs_eager(torch, "exact3 B=1", dec, *seeded_chunks(torch, dec, 1, EXACT3_PDFS,
+                                                                SEED + 19))
     del model, dec
     gc.collect()
     bm = vosk_tpu_torch.BatchModel(str(path), max_batch_size=B)
@@ -2421,6 +2693,8 @@ def phase_exact3(torch, tmp):
     fr, ll = loaded_frame(torch, bm)
     times["exact3_b32"] = phase_frame_step(torch, "exact3_b32", bdec, fr, ll, torch.ones(
         B, dtype=torch.bool, device=bdec.device))
+    captured_vs_eager(torch, "exact3 B=32 from the loaded frontier", bdec,
+                      *seeded_chunks(torch, bdec, B, EXACT3_PDFS, SEED + 20, scale=0.1), fr0=fr)
     return {"exact3_streaming": l_stream, "exact3_batch": l_batch}, times
 
 
@@ -3364,6 +3638,9 @@ def mesh_inputs(tmp):
         "v3": str(Path(tmp) / V3_DECODER)}
 
 
+PROFILE_WINDOWS = 3  # profiled windows of one call whose exact launches are checked
+
+
 def frame_kernels(torch, prof, T):
     """{device kernel, copy or memset: [launches a frame, device us a frame]}
     of a profile over T frames."""
@@ -3375,6 +3652,22 @@ def frame_kernels(torch, prof, T):
     if not rows:
         raise AssertionError("the profiler recorded no device kernel")
     return {k: [c / T, round(us / T, 3)] for k, (c, us) in rows.items()}
+
+
+def most_seen(windows):
+    """The rows of PROFILE_WINDOWS `frame_kernels` windows over the same
+    deterministic call: each row as the window that saw it most often, and
+    {row: [fewest, most] launches a frame} of the rows whose counts
+    differed between windows.  torch.profiler can lose a device record
+    (seen once on the card: 7 of a chunk's 8 expand_v4 launches) and never
+    adds one, so the most seen is what ran."""
+    rows = {}
+    for w in windows:
+        for k, v in w.items():
+            if k not in rows or v[0] > rows[k][0]:
+                rows[k] = v
+    seen = {k: [w.get(k, [0])[0] for w in windows] for k in rows}
+    return rows, {k: [min(c), max(c)] for k, c in seen.items() if min(c) != max(c)}
 
 
 def stripe_kernels(torch, dec, mesh, fr, llt):
@@ -3539,10 +3832,14 @@ def mesh_rank(mesh, paths, jobs):
         fr = {k: v.to(dev) for k, v in mid.items()}
         dec.decode_chunk_sharded(mesh, fr, chunks[1])  # warm
         sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            dec.decode_chunk_sharded(mesh, fr, chunks[1])
-            sync()
-        out["profile"] = frame_kernels(torch, prof, chunks[1].shape[1])
+        windows = []
+        zero_counts()
+        for _ in range(PROFILE_WINDOWS):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                dec.decode_chunk_sharded(mesh, fr, chunks[1])
+                sync()
+            windows.append(frame_kernels(torch, prof, chunks[1].shape[1]))
+        out["profile"] = (*most_seen(windows), counts())
     if "v3" in jobs:
         d3 = torch.load(paths["v3"], weights_only=False).to(dev)
         c3 = inp["v3_chunk"].to(dev)
@@ -3887,15 +4184,19 @@ def phase_mesh(torch, bm, tmp):
         f"and {B} tracebacks equal the unsharded decode's; {same_ch} of {B} channels' "
         f"frontiers equal; {lgot['secs']:.3f} s ({SMI})")
     del lref
-    prof = card4[0]["profile"]
+    prof, varied, c = card4[0]["profile"]
     hand = {k: v[0] for k, v in prof.items() if "expand_v4" in k or "select_v4" in k
             or "gather_rows" in k}
-    log("17a rank 0's profiled sharded chunk (launches, device us a frame): "
+    log(f"17a rank 0's profiled sharded chunk (rows whose launches a frame varied over "
+        f"{PROFILE_WINDOWS} windows: {json.dumps({k[:70]: v for k, v in varied.items()})}; "
+        f"launches, device us a frame): "
         + json.dumps({k[:70]: v for k, v in sorted(prof.items(), key=lambda kv: -kv[1][1])}))
+    n = PROFILE_WINDOWS * MESH_T
     if sum(v for k, v in hand.items() if "expand_v4" in k) != 1 \
             or sum(v for k, v in hand.items() if "select_v4" in k) != 2 \
-            or any("gather_rows" in k for k in hand):
-        raise AssertionError(f"a rank's frame step launched hand kernels {hand}")
+            or any("gather_rows" in k for k in hand) \
+            or c != {"expand_v4": n, "select_v4": n, "gather_rows": 0}:
+        raise AssertionError(f"a rank's frame step launched hand kernels {hand}, counts {c}")
     t0 = time.perf_counter()
     card2 = run_group(mesh_rank, 1, 2, "cuda", "gloo", args=(paths, ("v4", "v3")),
                       timeout=600)
@@ -4106,6 +4407,16 @@ def main() -> int:
             del v3
             log(json.dumps(phase_mesh(torch, bm, tmp)))
         return 0
+    if sys.argv[1:] == ["--capture-only"]:  # phases 4-8 with phase 19's checks in them
+        with tempfile.TemporaryDirectory() as tmp:
+            bm = phase_model(torch, dev, tmp)
+            phase_decoder(torch, bm)
+            phase_serving(torch, bm)
+            phase_streaming(torch, Path(tmp) / "bench_model")
+            phase_run_scan(torch, bm)
+            log(f"phase 19's checks took {sum(CAPTURE_SECONDS.values()):.3f} s: "
+                + json.dumps({k: round(v, 3) for k, v in CAPTURE_SECONDS.items()}))
+        return 0
     if sys.argv[1:] == ["--adaptive-only"]:  # phase 18 alone (on phase 4's model)
         with tempfile.TemporaryDirectory() as tmp:
             bm = phase_model(torch, dev, tmp)
@@ -4129,29 +4440,44 @@ def main() -> int:
             *_, model, audio, info = phase_pitch(torch, tmp)
             log(json.dumps([info, phase_speaker(torch, tmp, model, audio)]))
         return 0
+    def done(what):  # where the run's time goes, read off the log
+        log(f"{what} done {time.perf_counter() - t_start:.3f} s after the start")
+
     times, max_err = phase_kernel(torch, dev)
+    done("phase_kernel")
     with tempfile.TemporaryDirectory() as tmp:
         bm = phase_model(torch, dev, tmp)
+        done("phase_model")
         P = bm._model.am_config.num_pdfs
         phase_front_end(torch, bm)
+        done("phase_front_end")
         fs_times, profile = phase_decoder(torch, bm)
+        done("phase_decoder")
         launches = phase_serving(torch, bm)
+        done("phase_serving")
         b1, b1_err = phase_kernel(torch, dev, cases=(
             ("b1_ll", "float32", 1, 6008, 28000),   # streaming acoustic lookup
             ("b1_tsil", "int32", 1, 7000, 7000),    # streaming tsil lookup
         ))
+        done("phase_kernel (B = 1)")
         max_err = max(max_err, b1_err)
         launches_streaming, bench_stream_model = phase_streaming(torch, Path(tmp) / "bench_model")
+        done("phase_streaming")
         launches_run_scan = phase_run_scan(torch, bm)
+        done("phase_run_scan")
         launches_adaptive, adaptive_times = phase_adaptive(torch, bm)
+        done("phase_adaptive")
         fs_times.update(adaptive_times)
         launches_v3, v3_times, v3_err, v3_profile = phase_v3(torch, bm, tmp)
+        done("phase_v3")
         max_err = max(max_err, v3_err)
         t16 = time.perf_counter()
         launches_csr = {"csr_run_scan": phase_csr_run_scan(torch, bm),
                         "v3_csr_eps": phase_csr_eps(torch, bm)}
         t16 = time.perf_counter() - t16
+        done("phase_csr_run_scan, phase_csr_eps")
         launches_mesh, mesh_times = phase_mesh(torch, bm, tmp)
+        done("phase_mesh")
         del bm
         launches_kaldi, launches_kaldi_batch, (n_kaldi, k_kaldi), launches_mesh_nnet3 = \
             phase_kaldi(torch, tmp)
@@ -4159,10 +4485,13 @@ def main() -> int:
             ("kaldi_ll", "float32", 1, 6008, n_kaldi),
             ("kaldi_tsil", "int32", 1, k_kaldi, k_kaldi),
         ))
+        done("phase_kaldi")
         launches_split, launches_grammar, (d_main, d_gram) = phase_split(torch, tmp)
+        done("phase_split")
         t0 = time.perf_counter()
         launches_csr["csr_split"] = phase_csr_split(torch, tmp)
         t16 += time.perf_counter() - t0
+        done("phase_csr_split")
         log(f"phase 16 (CSR decoder, CSR eps rounds) took {t16:.3f} s")
         split_times, split_err = phase_kernel(torch, dev, cases=(
             ("split_ll", "float32", 1, 6008, d_main.K * d_main.M),
@@ -4170,20 +4499,30 @@ def main() -> int:
             ("grammar_ll", "float32", 1, 6008, d_gram.K * d_gram.M),
             ("grammar_tsil", "int32", 1, d_gram.K, d_gram.K),
         ))
+        done("phase_kernel (split, grammar)")
         max_err = max(max_err, kaldi_err, split_err)
         for key, d, seed in (("split", d_main, SEED + 9), ("grammar", d_gram, SEED + 10)):
             fs_times[key] = phase_frame_step(torch, key, d, *real_frame(torch, d, P, seed))
+            captured_vs_eager(torch, f"{key} (phase 10's decoder)", d,
+                              *seeded_chunks(torch, d, 1, P, seed))
+        done("phase_frame_step, captured_vs_eager (split, grammar)")
         rescoring = phase_rescoring(torch, tmp)
+        done("phase_rescoring")
         rnnlm = {k: rescoring.pop(k) for k in ("rnnlm", "gru")}
         launches_pitch, launches_pitch_batch, pitch_model, voiced, pitch_info = phase_pitch(
             torch, tmp)
+        done("phase_pitch")
         launches_speaker, speaker_info = phase_speaker(torch, tmp, pitch_model, voiced)
+        done("phase_speaker")
         del pitch_model
         gc.collect()
         t14 = time.perf_counter()
         launches_exact3, exact3_times = phase_exact3(torch, tmp)
+        done("phase_exact3")
         phase_rows(torch, bench_stream_model)
+        done("phase_rows")
         launches_server, srv = phase_server(torch, bench_stream_model)
+        done("phase_server")
         try:
             pcm10 = noise_pcm(10.0, 16000, SEED + 30)
             wav10 = Path(tmp) / "phase14.wav"
@@ -4191,13 +4530,16 @@ def main() -> int:
             launches_cli = phase_transcriber(torch, tmp, Path(tmp) / "bench_model", srv, wav10)
         finally:
             srv.close()
+        done("phase_transcriber")
         launches_cabi = phase_cabi(torch, tmp, bench_stream_model, Path(tmp) / "bench_model",
                                    wav10, pcm10)
         del bench_stream_model
+        done("phase_cabi")
         log(f"phase 14 (exact3, server, transcriber, C ABI) took "
             f"{time.perf_counter() - t14:.3f} s")
         launches_recipe, training = phase_training(
             torch, tmp, native_rnnlm_config(Path(tmp) / "resc_native" / "rnnlm"))
+        done("phase_training")
 
     paths = {"streaming": launches_streaming, "run_scan": launches_run_scan,
              "adaptive": launches_adaptive,
@@ -4258,6 +4600,8 @@ def main() -> int:
             **{f"{shape}_{k}": t[name][i] for shape, t in fs_times.items() if shape != "b32"
                for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"), (5, "library_ms"))},
             "profiled_launches_per_frame": sum(v for k, v in profile.items() if name in k),
+            # captured chunk programs replayed on the main paths (phase 19)
+            **{f"graph_replays_{k}": v for k, v in REPLAYS.items()},
             **({f"{shape}_{k}": t[name][i] for shape, t in exact3_times.items()
                 for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}
                if name == "select_v4" else {}),
@@ -4320,6 +4664,8 @@ def main() -> int:
         {"pitch": pitch_info, "speaker": speaker_info}))
     log("training (torch ops, no hand kernel; the recipe decodes through expand_v4 and "
         "select_v4): " + json.dumps(training))
+    log(f"phase 19 (captured chunk programs) took {sum(CAPTURE_SECONDS.values()):.3f} s in "
+        f"all: " + json.dumps({k: round(v, 3) for k, v in CAPTURE_SECONDS.items()}))
     log(f"chip_smoke.py took {time.perf_counter() - t_start:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """vosk_tpu_torch on the card: the gather kernel, the two frame-step
 kernels (expand_v4 over packed16 and exact3 rows and over frontier stripes,
 select_v4, also on the sharded search's merged pool), the decoder with
-them, its sharded search over ranks that share the card, the v3 decoder with
+them, its captured chunk programs (CUDA graphs) against its eager body, its
+sharded search over ranks that share the card, the v3 decoder with
 the gather kernel at its four sites, the CSR decoder, a streaming KaldiRecognizer decode
 (v4, and v3 on a graph that keeps labeled eps arcs), a Kaldi-layout
 directory with i-vectors, the rescoring RNNLMs (Kaldi TDNN-LSTM and
@@ -14,6 +15,9 @@ jax nor vosk_tpu, so they run where only the port is installed:
 
 (`--noconftest` because tests/conftest.py sets up jax.)
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -528,6 +532,123 @@ def test_frame_step_replays_in_a_cuda_graph(cuda_device, realistic_graph):
     assert torch.isfinite(eager["frontier.cost"]).sum() > B * 10
 
 
+@pytest.fixture(scope="module")
+def capture_decoder(realistic_graph):
+    """The realistic graph's decoder at max-active 2048 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card (module docstring)")
+    return BatchViterbi(realistic_graph, DecodeParams(beam=13.0, max_active=2048,
+                                                      lattice_beam=6.0),
+                        silence_pdfs=np.array([0, 1]), optimize_graph=True, device="cuda")
+
+
+def _capture_chunks(dev, seed, B=8, T=7, n=3):
+    """n chunks [B, T, 64] (flat scores on half the channels, which fill the
+    frontier) and their valid masks, with holes."""
+    gen = torch.Generator().manual_seed(seed)
+    chunks, valid = [], []
+    for _ in range(n):
+        ll = torch.randn((B, T, 64), generator=gen)
+        ll[: B // 2] *= 0.1
+        v = torch.ones((B, T), dtype=torch.bool)
+        v[1, 2:5] = False
+        chunks.append(ll.to(dev))
+        valid.append(v.to(dev))
+    return chunks, valid
+
+
+def _chained(fn, dec, chunks, valid, out=None):
+    """Every chunk's (frontier, records, best, best-final) from fn over the
+    chained chunks, kept to the end; out: [n, T, B, K|R] record buffers."""
+    fr, kept = dec.init_frontier(chunks[0].shape[0]), []
+    for i, (ll, v) in enumerate(zip(chunks, valid)):
+        o = None if out is None else {k: x[i] for k, x in out.items()}
+        fr, rec, best, bestf = fn(fr, ll, v, o)
+        kept.append({**{f"frontier.{k}": x for k, x in fr.items()}, **rec, "best": best,
+                     "best_final": bestf})
+    torch.cuda.synchronize()
+    return kept
+
+
+def _same_chunks(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.keys() == b.keys()
+        for k in b:
+            assert torch.equal(_bits(a[k]), _bits(b[k])), (i, k)
+
+
+@pytest.mark.parametrize("K", [2048, 1024])
+def test_captured_chunks_equal_eager(cuda_device, capture_decoder, K):
+    """decode_chunk replays the captured program of the chunk's shape
+    (captured by a first call on other scores) and equals the eager body bit
+    for bit over 3 chained chunks, records kept from every chunk and
+    compared only at the end (a returned buffer that a later replay
+    overwrote would show), on the decoder and on a clone at K = 1024 (its
+    own program); the same with out= views of a [3, T, B, K|R] buffer.
+    Each replay adds T to both launch counts and one to the replay count."""
+    dec = capture_decoder if K == capture_decoder.K else capture_decoder.clone_with_max_active(K)
+    assert dec.K == K and dec.graph_eligible
+    chunks, valid = _capture_chunks(cuda_device, 21)
+    primer, pvalid = _capture_chunks(cuda_device, 22, n=1)
+    counts = frame_step.GRAPH_COUNTS
+    before = (counts["captures"], len(dec._programs))
+    dec.decode_chunk(dec.init_frontier(8), primer[0], pvalid[0])
+    assert (counts["captures"] - before[0], len(dec._programs) - before[1]) in ((1, 1), (0, 0))
+    T = chunks[0].shape[1]
+    before = (expand_v4.launches, select_v4.launches, counts["replays"], counts["captures"])
+    got = _chained(dec.decode_chunk, dec, chunks, valid)
+    assert (expand_v4.launches - before[0], select_v4.launches - before[1],
+            counts["replays"] - before[2], counts["captures"] - before[3]) == (3 * T, 3 * T, 3, 0)
+    eager = _chained(dec.decode_chunk_eager, dec, chunks, valid)
+    _same_chunks(got, eager)
+    buf = dec.record_buffers((3, *dec.record_lead(T, 8)))
+    with_out = _chained(dec.decode_chunk, dec, chunks, valid, buf)
+    for i, kept in enumerate(with_out):
+        for k, v in buf.items():
+            assert kept[k].data_ptr() == v[i].data_ptr()
+    _same_chunks(with_out, eager)
+    assert torch.isfinite(eager[-1]["frontier.cost"]).sum(1).max() == K  # flat channels fill
+
+
+def test_captured_chunks_from_two_threads(cuda_device, capture_decoder):
+    """Two threads decode different inputs on one decoder, one of them on a
+    stream of its own, 3 chained chunks 5 times each, through the shared
+    program of their shape: each gets its own eager result every time."""
+    dec = capture_decoder
+    inputs = [_capture_chunks(cuda_device, seed) for seed in (31, 32)]
+    want = [_chained(dec.decode_chunk_eager, dec, *inp) for inp in inputs]
+    dec.decode_chunk(dec.init_frontier(8), inputs[0][0][0], inputs[0][1][0])  # captured
+    got, errors = [[], []], []
+    start = threading.Barrier(2, timeout=60)
+
+    def worker(i):
+        try:
+            start.wait()
+            stream = torch.cuda.Stream(cuda_device) if i else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                for _ in range(5):
+                    got[i].append(_chained(dec.decode_chunk, dec, *inputs[i]))
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 5
+        for run in got[i]:
+            _same_chunks(run, want[i])
+
+
 def test_decoder_above_shared_cap_bit_equal(cuda_device, realistic_graph):
     """max-active 10,000 on a 20,000-state graph: its K = R = 10,000 keys
     are more than select_v4 sorts in shared memory, so its second kernel
@@ -585,7 +706,13 @@ def test_decoder_kernel_plain_and_cpu_bit_equal(cuda_device, realistic_graph):
 
     before = (expand_v4.launches, select_v4.launches, gather_rows.launches)
     kern = run(dec, frame_step.KERNELS)
-    # one call of each frame-step kernel per frame; no gather on the path
+    # one call of each frame-step kernel per frame, twice on the first call
+    # of a shape (the eager warm-up before the capture, then the replay);
+    # no gather on the path
+    assert (expand_v4.launches - before[0], select_v4.launches - before[1],
+            gather_rows.launches - before[2]) == (2 * T, 2 * T, 0)
+    before = (expand_v4.launches, select_v4.launches, gather_rows.launches)
+    assert run(dec, frame_step.KERNELS).keys() == kern.keys()
     assert (expand_v4.launches - before[0], select_v4.launches - before[1],
             gather_rows.launches - before[2]) == (T, T, 0)
     plain = run(dec, frame_step.PLAIN)

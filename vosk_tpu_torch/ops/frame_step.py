@@ -28,6 +28,12 @@ CUDA tensors, and runs its plain PyTorch version on CPU tensors;
 `<wrapper>.launches` counts kernel calls.  `KERNELS` and `PLAIN` bundle
 the pairs for the decoder's `step_ops` hook.
 
+The v4 decoder captures its chunk's frame steps in a CUDA graph
+(ops/viterbi.py `decode_chunk`).  A wrapper called while its stream is
+capturing records its launch and counts nothing; each replay of a T-frame
+chunk adds T to both counts (`count_replay`), so the counts stay the
+launches the device ran.  `GRAPH_COUNTS` counts the captures and replays.
+
 Bit parity with the JAX decoder: XLA on the CPU contracts the source's
 `(tok_cost + w) - scale * ac` into one fused multiply-add, so the cost is
 rounded once after the f32 sum.  The kernel computes that FMA; the plain
@@ -238,8 +244,10 @@ def expand_v4(em_pack, tok_state, tok_cost, ll, acoustic_scale, S, M, mbits, pdf
             *(o.data_ptr() for o in out),
             -1 if stage is None else EXPAND_STAGES[stage],
             stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     _launched("expand_v4", err)
-    expand_v4.launches += 1
+    if not capturing:
+        expand_v4.launches += 1
     return tuple(out)
 
 
@@ -356,14 +364,15 @@ def select_in_global(E: int, K: int, K2: int, R: int) -> bool:
 
 class SelectScratch:
     """select_v4's device scratch, kept by its caller (a decoder holds one
-    and frees it with itself).  Per (device, stream), since calls on one
-    stream run in order: pass 1's per-channel best key and list count
-    (pass 2 resets them to BIG and 0 after reading them, so they are set
-    only when allocated), its candidate lists [B * E] of int32 candidate
-    numbers, and, where pass 2 works in global scratch
-    (`select_in_global`), its buckets (a row of sort keys per CTA) and its
-    hash table (keys and values).  Each buffer grows to the largest call
-    seen."""
+    and frees it with itself; each captured chunk program holds its own,
+    whose buffers its graph names, for as long as the graph lives).  Per
+    (device, stream), since calls on one stream run in order: pass 1's
+    per-channel best key and list count (pass 2 resets them to BIG and 0
+    after reading them, so they are set only when allocated), its
+    candidate lists [B * E] of int32 candidate numbers, and, where pass 2
+    works in global scratch (`select_in_global`), its buckets (a row of
+    sort keys per CTA) and its hash table (keys and values).  Each buffer
+    grows to the largest call seen."""
 
     _DTYPES = {"best": torch.int32, "count": torch.int32, "list": torch.int32,
                "s": torch.int64, "tk": torch.int32, "tv": torch.int64}
@@ -461,12 +470,26 @@ def select_v4(cbits, nsm, pm, frontier, valid, beam, lattice_beam, S, mbits, K2,
             ptr["count"], ptr["list"], new["state"].data_ptr(), new["cost"].data_ptr(),
             new["tsil"].data_ptr(), *(out[k].data_ptr() for k in RECORD_PLANES), ptr["s"],
             ptr["tk"], ptr["tv"], None if stats is None else stats.data_ptr(), stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     _launched("select_v4", err)
-    select_v4.launches += 1
+    if not capturing:
+        select_v4.launches += 1
     return new, out
 
 
 select_v4.launches = 0
+
+# the v4 decoder's chunk programs (ops/viterbi.py): CUDA graphs captured and
+# replays launched
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def count_replay(T: int) -> None:
+    """One replay of a captured T-frame chunk: T launches of each frame-step
+    kernel."""
+    expand_v4.launches += T
+    select_v4.launches += T
+    GRAPH_COUNTS["replays"] += 1
 
 
 class StepOps(NamedTuple):

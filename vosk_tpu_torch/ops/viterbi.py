@@ -56,6 +56,22 @@ for eps rounds), one stable sort for the dedup, the v3 step's records
 with CSR arc ids in lat_arc.  Its device code
 is torch ops: the source reaches no Pallas kernel on it.
 
+The compiled chunk (the source's `jax.jit(self._decode_entry)`, :283-295,
+a `lax.scan` of the frame step and the best reductions, :1388-1419): on a
+CUDA device `decode_chunk` replays one captured CUDA graph per chunk shape
+(`_ChunkProgram`) where `graph_eligible` holds, the v4 step on the padded
+layout with the kernels (`step_ops is frame_step.KERNELS`).  The graph is
+the eager body (`_decode_body`: T frame steps, then the reductions) captured
+over static inputs; each call copies its frontier, scores and mask in,
+replays, and copies the frontier, records and best costs out, so nothing it
+returns is a buffer that the next replay overwrites.  Eager by rule,
+decided from the decoder and the call before any launch: the CPU, the v3
+and CSR steps (a later slice), `step_ops` swapped (`frame_step.PLAIN` holds
+the kernels against their plain versions on the card), an empty chunk, and
+`decode_chunk_sharded`, whose collectives go through gloo on the host.
+`decode_chunk_eager` runs the eager body on any device: the card-side
+reference the captured program is held to.
+
 `clone_with_max_active`, `resize_frontier` and `live_tokens` serve the
 adaptive max-active ladder (runtime/pipeline.py `run_adaptive`): decoders
 at smaller max_active over the same device tables, and the frontier cut or
@@ -82,6 +98,7 @@ graph.  Lattice records are always written.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import heapq
@@ -94,7 +111,8 @@ from ..graph.fst import EPSILON, DecodingGraph
 from ..graph.lattice import to_host
 from . import viterbi_csr, viterbi_v3
 from .frame_step import (
-    INF, KERNELS, PM_IDENT_FLAG, PM_MASK, SPEECH_BIT, TSIL_MASK, SelectScratch,
+    GRAPH_COUNTS, INF, KERNELS, PM_IDENT_FLAG, PM_MASK, SPEECH_BIT, TSIL_MASK, SelectScratch,
+    count_replay,
 )
 from .gather import gather_rows
 # layout=None: the padded layout for any out-degree up to PADDED_MAX_OUT
@@ -115,6 +133,9 @@ EPS_BUDGET = 1024
 # CSR expansion budgets: K * out-degree slots, at most 2^18 (the source's
 # defaults)
 MAX_EXPAND = 1 << 18
+# captured chunk programs a decoder keeps (one per chunk shape), the least
+# recently used dropped first
+CHUNK_PROGRAMS = 8
 # tables on the decoder's device, for `to`
 DEVICE_TABLES = ("em_pack", "eps_pack", "_final_cost_t", "em_off", "em_pdf", "em_olabel",
                  "em_w", "em_next", "eps_off", "eps_olabel", "eps_w", "eps_next")
@@ -219,10 +240,18 @@ class BatchViterbi:
         # kernel with its plain version on the same CUDA tensors
         self.step_ops = KERNELS
         self.gather_op = gather_rows
-        self._select_scratch = SelectScratch()
-        # recognizers of one model share this decoder: one chunk at a time
-        # (the source serialises decode_chunk the same way)
+        self._own_state()
+
+    def _own_state(self) -> None:
+        """What the decoder, and each copy of it, keeps to itself: the
+        dispatch lock (recognizers of one model share a decoder, one chunk
+        at a time, as the source serialises decode_chunk), the select
+        kernel's scratch and the captured chunk programs, least recently
+        used first.  A copy starts with no program: a graph bakes in the
+        tables, K and R of the decoder it was captured on."""
         self._dispatch_lock = threading.RLock()
+        self._select_scratch = SelectScratch()
+        self._programs = collections.OrderedDict()
 
     # ------------------------------------------------------------------ init
 
@@ -378,9 +407,9 @@ class BatchViterbi:
     def clone_with_max_active(self, k: int) -> "BatchViterbi":
         """A decoder over the same graph tables with max_active k (source
         :230-257): every device table and host view is shared by reference,
-        and only the K-derived sizes, the initial closure, the kernel scratch
-        and the dispatch lock are the clone's own.  R follows the source's
-        clone, not `__init__` (no cap at K + Ee).  The step's kernels
+        and only the K-derived sizes, the initial closure and `_own_state`
+        (lock, kernel scratch, chunk programs) are the clone's own.  R
+        follows the source's clone, not `__init__` (no cap at K + Ee).  The step's kernels
         (`step_ops`, `gather_op`) are copied when the clone is made: a later
         swap on this decoder does not reach it.  max_active is an upper bound
         on live tokens, so wherever fewer stay live than the clone's K, it
@@ -396,8 +425,7 @@ class BatchViterbi:
         c.Eb = max(1, min(K, self.Eb))
         c.R = min(max(K, min(2048, c.E)), c.E)
         c._init_states, c._init_costs, c._init_prefixes = c._initial_closure()
-        c._dispatch_lock = threading.RLock()
-        c._select_scratch = SelectScratch()
+        c._own_state()
         return c
 
     def resize_frontier(self, frontier, k_new: int) -> dict:
@@ -421,27 +449,27 @@ class BatchViterbi:
 
     def to(self, device) -> "BatchViterbi":
         """The same decoder with its device tables on `device` (host views
-        and the prepared graph are shared, not rebuilt)."""
+        and the prepared graph are shared, not rebuilt; `_own_state` is the
+        copy's own)."""
         c = copy.copy(self)
         c.device = torch.device(device)
         for k in DEVICE_TABLES:
             if hasattr(self, k):
                 setattr(c, k, getattr(self, k).to(c.device))
-        c._dispatch_lock = threading.RLock()
-        c._select_scratch = SelectScratch()
+        c._own_state()
         return c
 
     def __getstate__(self):
-        """Pickled (torch.save) without its lock and kernel scratch, so that
-        the ranks of a mesh can load one prepared decoder."""
+        """Pickled (torch.save) without its lock, kernel scratch and chunk
+        programs, so that the ranks of a mesh can load one prepared
+        decoder."""
         st = dict(self.__dict__)
-        del st["_dispatch_lock"], st["_select_scratch"]
+        del st["_dispatch_lock"], st["_select_scratch"], st["_programs"]
         return st
 
     def __setstate__(self, st):
         self.__dict__.update(st)
-        self._dispatch_lock = threading.RLock()
-        self._select_scratch = SelectScratch()
+        self._own_state()
 
     def init_frontier(self, batch: int) -> dict:
         dev = self.device
@@ -454,7 +482,7 @@ class BatchViterbi:
 
     # ------------------------------------------------------------- v4 step
 
-    def _frame_step_v4(self, frontier, ll, valid, out, mesh=None):
+    def _frame_step_v4(self, frontier, ll, valid, out, mesh=None, scratch=None):
         """One whole-batch frame step: expand, then select.  ll: [B, P]
         (rows may be strided); valid: [B] bool.  Returns (frontier, records
         {pm, state, f_cost} [B, K] and {lat_pm, lat_cost} [B, R]), the
@@ -468,7 +496,9 @@ class BatchViterbi:
         select_v4 takes.  select_v4 breaks ties by pool position, as a
         stable sort does, and the merged pool's segments are each cost
         sorted in rank order, so the source's sort of the merged pool
-        (:1531) is left out: it would not move a tie."""
+        (:1531) is left out: it would not move a tie.
+
+        scratch: select_v4's (`SelectScratch`), the decoder's by default."""
         i, n = (0, 1) if mesh is None else viterbi_v3.shard_coordinate(mesh)
         cands = self.step_ops.expand(
             self.em_pack, frontier["state"], frontier["cost"], ll,
@@ -478,7 +508,8 @@ class BatchViterbi:
             cands = viterbi_v3.shard_candidates(self, mesh, cands[0], cands[1:], self.K // n)
         return self.step_ops.select(
             *cands, frontier, valid, self.params.beam, self.params.lattice_beam,
-            self.S, self.mbits, self.K2, self.R, out, scratch=self._select_scratch)
+            self.S, self.mbits, self.K2, self.R, out,
+            scratch=self._select_scratch if scratch is None else scratch)
 
     # ------------------------------------------------------------- chunk API
 
@@ -505,13 +536,33 @@ class BatchViterbi:
         return {k: torch.empty((*lead, *n), dtype=dt, device=dev)
                 for k, (dt, n) in shapes.items()}
 
+    @property
+    def graph_eligible(self) -> bool:
+        """Whether `decode_chunk` on CUDA tensors replays a captured chunk
+        program: the v4 step on the padded layout with the kernels
+        (`step_ops is frame_step.KERNELS`)."""
+        return self.frame_step == "v4" and self.layout == "padded" and self.step_ops is KERNELS
+
     def decode_chunk(self, frontier, loglikes, valid=None, out=None):
         """loglikes: [B, T, P] float32; valid: [B, T] bool.  Returns
         (frontier, records, best cost [B], best final cost [B]), all on the
         decoder's device; records are {name: [T, B, K or R]} (v4) or {name:
         [B, T, L, K or R]} (v3 and CSR).  out: optional preallocated records
         (`record_buffers(record_lead(T, B))` or views of a larger buffer) to
-        write into instead of allocating."""
+        write into instead of allocating.
+
+        On CUDA tensors, where `graph_eligible`, the chunk replays the
+        captured program of its shape (the first call of a shape captures
+        it); what it returns is fresh, or `out`.  Elsewhere, and for an
+        empty chunk, the eager body (`decode_chunk_eager`)."""
+        B, T, _ = loglikes.shape
+        if loglikes.is_cuda and self.graph_eligible and B * T:
+            return self._replay(frontier, loglikes, valid, out)
+        return self._decode(frontier, loglikes, valid, out)
+
+    def decode_chunk_eager(self, frontier, loglikes, valid=None, out=None):
+        """`decode_chunk` launched op by op on any device: the body that the
+        captured chunk program holds, and its reference on the card."""
         return self._decode(frontier, loglikes, valid, out)
 
     def decode_chunk_sharded(self, mesh, frontier, loglikes, valid=None, out=None):
@@ -551,25 +602,63 @@ class BatchViterbi:
             valid = torch.ones((B, T), dtype=torch.bool, device=dev)
         with self._dispatch_lock:
             recs = out if out is not None else self.record_buffers(self.record_lead(T, B), dev)
-            ll32 = loglikes.to(torch.float32)
-            if self.frame_step == "v4":
-                for t in range(T):
-                    # frame t of the chunk read in place; records written at t
-                    frontier, _ = self._frame_step_v4(
-                        frontier, ll32[:, t], valid[:, t], {k: v[t] for k, v in recs.items()},
-                        mesh)
+            return self._decode_body(frontier, loglikes.to(torch.float32), valid, recs, mesh)
+
+    def _decode_body(self, frontier, ll32, valid, recs, mesh=None, scratch=None):
+        """The chunk (source `_decode_chunk_impl`, :1388-1419): every frame
+        step, records written into `recs`, then the best and best-final
+        reductions.  Run eagerly, or captured by a chunk program over its
+        static tensors and its own select scratch."""
+        T = ll32.shape[1]
+        if self.frame_step == "v4":
+            for t in range(T):
+                # frame t of the chunk read in place; records written at t
+                frontier, _ = self._frame_step_v4(
+                    frontier, ll32[:, t], valid[:, t], {k: v[t] for k, v in recs.items()},
+                    mesh, scratch)
+        else:
+            # the v3 and CSR lookups read contiguous ll rows: one copy a
+            # chunk
+            ll_t = ll32.transpose(0, 1).contiguous()
+            step = viterbi_csr.frame_step if self.layout == "csr" else (
+                lambda *a: viterbi_v3.frame_step_v3(*a, mesh=mesh))
+            for t in range(T):
+                frontier = step(self, frontier, ll_t[t], valid[:, t],
+                                {k: v[:, t] for k, v in recs.items()})
+        best_cost = frontier["cost"].amin(dim=1)
+        final_tot = frontier["cost"] + self._final_cost_t[frontier["state"].long()]
+        return frontier, recs, best_cost, final_tot.amin(dim=1)
+
+    def _program_key(self, ll32) -> tuple:
+        """A chunk program's key: (device, B, T, K, R, P, the f32 scores'
+        strides), the shapes a captured graph is fixed to."""
+        B, T, P = ll32.shape
+        return (ll32.device, B, T, self.K, self.R, P, ll32.stride())
+
+    def _replay(self, frontier, loglikes, valid, out):
+        """decode_chunk through the captured program of the chunk's shape,
+        captured on the first call of that shape.  Under the dispatch lock,
+        on the caller's current stream: copy-in, replay, copy-out, so one
+        call's work is enqueued whole before another's copy-in.  A failed
+        capture or replay raises."""
+        ll32 = loglikes.to(torch.float32)
+        key = self._program_key(ll32)
+        stream = torch.cuda.current_stream(ll32.device)
+        with self._dispatch_lock:
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = _ChunkProgram(self, ll32)
+                prog.load(frontier, ll32, valid, stream)
+                prog.capture(self, stream)
+                self._programs[key] = prog
+                if len(self._programs) > CHUNK_PROGRAMS:
+                    _, old = self._programs.popitem(last=False)
+                    old.done.synchronize()  # its last call's work is done before it is freed
             else:
-                # the v3 and CSR lookups read contiguous ll rows: one copy a
-                # chunk
-                ll_t = ll32.transpose(0, 1).contiguous()
-                step = viterbi_csr.frame_step if self.layout == "csr" else (
-                    lambda *a: viterbi_v3.frame_step_v3(*a, mesh=mesh))
-                for t in range(T):
-                    frontier = step(self, frontier, ll_t[t], valid[:, t],
-                                    {k: v[:, t] for k, v in recs.items()})
-            best_cost = frontier["cost"].amin(dim=1)
-            final_tot = frontier["cost"] + self._final_cost_t[frontier["state"].long()]
-            return frontier, recs, best_cost, final_tot.amin(dim=1)
+                self._programs.move_to_end(key)
+                prog.load(frontier, ll32, valid, stream)
+            prog.replay()
+            return prog.unload(out, stream)
 
     def best_tsil(self, frontier) -> torch.Tensor:
         """[B] int32 on the frontier's device: the best (non-final) token's
@@ -694,3 +783,103 @@ class BatchViterbi:
             prefix = [(ol, 0) for ol in self._init_prefixes[slot]]
             ols_frames = prefix + ols_frames
         return best_cost, ols_frames, pdfs
+
+
+def _check_like(name, x, like) -> None:
+    if not isinstance(x, torch.Tensor) or (x.shape, x.dtype, x.device) != (
+            like.shape, like.dtype, like.device):
+        raise ValueError(f"{name}: got {getattr(x, 'dtype', type(x))} "
+                         f"{tuple(getattr(x, 'shape', ()))} on {getattr(x, 'device', None)}; "
+                         f"the chunk needs {like.dtype} {tuple(like.shape)} on {like.device}")
+
+
+class _ChunkProgram:
+    """The captured v4 chunk of one shape: the counterpart of the source's
+    `jax.jit(self._decode_entry)`, whose cache is also keyed by shape.
+
+    Static inputs: the frontier {state, cost, tsil} [B, K], the f32 scores
+    [B, T, P] at the caller's strides and valid [B, T]; the records
+    [T, B, K|R]; the graph of `_decode_body` over them (T expand_v4 +
+    select_v4 steps, the best and best-final reductions), whose static
+    outputs are the new frontier and both best costs; and select_v4's
+    scratch, which the graph's pointers name and so lives with it.  Before
+    the capture the body runs once, eagerly, on the capturing stream: that
+    sizes the scratch and makes the kernel library's one-time per-device
+    queries (shared-memory attributes, cluster occupancy) outside the
+    capture.  `done` is recorded after each call's copy-out; the next
+    call's stream waits on it, so a caller on another stream cannot race
+    the static buffers."""
+
+    def __init__(self, dec, ll32):
+        B, T, _ = ll32.shape
+        dev = ll32.device
+        self.T = T
+        self.frontier = {k: torch.empty((B, dec.K), dtype=dt, device=dev)
+                         for k, dt in (("state", torch.int32), ("cost", torch.float32),
+                                       ("tsil", torch.int32))}
+        self.ll = torch.empty_strided(ll32.shape, ll32.stride(), dtype=torch.float32,
+                                      device=dev)
+        self.valid = torch.empty((B, T), dtype=torch.bool, device=dev)
+        self.recs = dec.record_buffers(dec.record_lead(T, B), dev)
+        self.scratch = SelectScratch()
+        self.graph = self.outs = None
+        self.done = torch.cuda.Event()
+
+    def _run(self, dec):
+        return dec._decode_body(self.frontier, self.ll, self.valid, self.recs,
+                                scratch=self.scratch)
+
+    def load(self, frontier, ll32, valid, stream) -> None:
+        """Copy a call's inputs into the static ones, on `stream`, after the
+        last call's copy-out."""
+        for k, v in self.frontier.items():
+            _check_like(f"frontier[{k}]", frontier[k], v)
+        if valid is not None:
+            _check_like("valid", valid, self.valid)
+        stream.wait_event(self.done)
+        for k, v in self.frontier.items():
+            v.copy_(frontier[k])
+        self.ll.copy_(ll32)
+        if valid is None:
+            self.valid.fill_(True)
+        else:
+            self.valid.copy_(valid)
+
+    def capture(self, dec, stream) -> None:
+        """The warm-up, then the capture, on a side stream that waits for
+        the copy-in; `stream` then waits for the side stream."""
+        side = torch.cuda.Stream(stream.device)
+        side.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self._run(dec)
+            # other threads' CUDA calls stay legal while this one captures
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                frontier, _, best, best_final = self._run(dec)
+            finally:
+                graph.capture_end()
+        stream.wait_stream(side)
+        self.graph, self.outs = graph, (frontier, best, best_final)
+        GRAPH_COUNTS["captures"] += 1
+
+    def replay(self) -> None:
+        self.graph.replay()
+        count_replay(self.T)
+
+    def unload(self, out, stream):
+        """decode_chunk's result, copied out of the static outputs: records
+        into `out` when given, else fresh tensors, and a fresh frontier and
+        best costs."""
+        if out is None:
+            recs = {k: v.clone() for k, v in self.recs.items()}
+        else:
+            for k, v in self.recs.items():
+                _check_like(f"out[{k}]", out[k], v)
+                out[k].copy_(v)
+            recs = out
+        frontier, best, best_final = self.outs
+        res = ({k: v.clone() for k, v in frontier.items()}, recs, best.clone(),
+               best_final.clone())
+        self.done.record(stream)
+        return res

@@ -31,8 +31,10 @@ source leaves it (`Nnet3Am.params` is empty there, so `shard_am_params`
 shards nothing).  Decoder tables are each rank's own copy, and decoding
 stays channel-local through `decode_chunk`, as in the source.
 
-Not ported, by decision: the ragged unroll (ROADMAP A, "Not ported").  No
-CUDA graph is captured yet (ROADMAP B4).
+Not ported, by decision: the ragged unroll (ROADMAP A, "Not ported").  On
+the card each chunk's v4 decode replays its captured CUDA graph
+(`BatchViterbi.decode_chunk`, ops/viterbi.py), a rung's clone its own;
+features and the AM still run op by op (ROADMAP B4).
 """
 from __future__ import annotations
 

@@ -12,7 +12,9 @@ phase 11's v3 decoder, `--adaptive-only` phase 4's model; `--mesh-only`
 leaves out 17e's nnet3 part, which runs in phase 9.  `--threads-only` runs
 phase 7's long stream and phase 14 (b0), (b) and (d) on phase 4's model,
 with test_vosk_mt.c 5 times, each held to its floor.  `--capture-only` runs
-phases 4, 5, 7 and 8 on phase 4's model with phase 19's checks in them.)
+phases 4, 5, 7 and 8 on phase 4's model with phase 19's checks in them,
+phase 9's nnet3 AM check on phase 4's TDNN-F exported as nnet3 with the
+i-vector graft.)
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -298,7 +300,21 @@ prints no result line):
      decoded frame, best bit-equal), and one profiled drive of each (idle
      share).  The serving, streaming, run_scan and run_adaptive paths must
      replay (`read_replays`); run_adaptive's counts stay one expand_v4 and
-     one select_v4 a decoded frame.
+     one select_v4 a decoded frame.  "19 am" (run inside phases 4, 8 and
+     9): the AM's process_chunk and flush on the card replay one CUDA
+     graph per chunk shape (models/streaming.py `_AmChunkProgram`).
+     Captured against the eager body (`process_chunk_eager`, the eager
+     flush), bit for bit over 3 chained feature chunks and the flush,
+     every call's state, out and out_valid kept to the end
+     (`am_captured_vs_eager`): phase 4's bench TDNN-F at B = 32 and at the
+     combined step's STEP_ROWS = 4 rows, and phase 9's nnet3 AM with its
+     i-vector input (dim 100) at 4 rows.  Host ms a process_chunk call,
+     captured against eager, interleaved (`am_chunk_times`), with the
+     device memory a program holds: B = 32 and B = 4 at phase 4's chunk,
+     B = 32 at run_scan's.  run_scan with the AM eager against captured,
+     the decoder captured in both, interleaved (ms a decoded frame, best
+     bit-equal, AM replays counted), and one profiled drive of each (idle
+     share).  Those four paths must replay AM programs too.
 The line before the last is the kernel table as JSON (bounds from the
 bytes and operations each call's data needs, over the H100 SXM data
 sheet's 3.35 TB/s and 67 TFLOP/s in f32); the last line is
@@ -387,13 +403,16 @@ def check_no_spills(build_log, kernels=("expand_v4_kernel", "gather_rows_kernel"
 
 
 def zero_counts():
-    """Every kernel's launch count, and the chunk programs' capture and
-    replay counts, to 0, just before a path is driven."""
+    """Every kernel's launch count, and the decoder's and the AM's chunk
+    programs' capture and replay counts, to 0, just before a path is
+    driven."""
+    from vosk_tpu_torch.models.streaming import GRAPH_COUNTS as AM_COUNTS
     from vosk_tpu_torch.ops.frame_step import GRAPH_COUNTS, expand_v4, select_v4
     from vosk_tpu_torch.ops.gather import gather_rows
 
     expand_v4.launches = select_v4.launches = gather_rows.launches = 0
     GRAPH_COUNTS.update(captures=0, replays=0)
+    AM_COUNTS.update(captures=0, replays=0)
 
 
 V4_KERNELS = ("expand_v4", "select_v4")  # the v4 step's kernels
@@ -414,19 +433,23 @@ def read_counts(what, need=V4_KERNELS):
     return counts
 
 
-REPLAYS = {}  # {path: captured chunk programs replayed}, its first run (read_replays)
+REPLAYS = {}  # {path: decoder chunk programs replayed}, its first run (read_replays)
+AM_REPLAYS = {}  # {path: AM chunk programs replayed}, the same
 
 
 def read_replays(what, key) -> int:
-    """The captured chunk programs replayed since zero_counts() (the first
-    reading of each key kept in REPLAYS); raises unless the path replayed
-    one."""
+    """The decoder's captured chunk programs replayed since zero_counts()
+    (the first reading of each key kept in REPLAYS, and the AM's in
+    AM_REPLAYS); raises unless the path replayed a program of each."""
+    from vosk_tpu_torch.models.streaming import GRAPH_COUNTS as AM_COUNTS
     from vosk_tpu_torch.ops.frame_step import GRAPH_COUNTS
 
-    n = GRAPH_COUNTS["replays"]
+    n, n_am = GRAPH_COUNTS["replays"], AM_COUNTS["replays"]
     REPLAYS.setdefault(key, n)
-    if n <= 0:
-        raise AssertionError(f"{what} replayed no captured chunk program: {GRAPH_COUNTS}")
+    AM_REPLAYS.setdefault(key, n_am)
+    if n <= 0 or n_am <= 0:
+        raise AssertionError(f"{what} replayed no captured chunk program: decoder "
+                             f"{GRAPH_COUNTS}, AM {AM_COUNTS}")
     return n
 
 
@@ -840,6 +863,146 @@ def chunk_times(torch, name, dec, fr, ll, valid):
     return ts
 
 
+def am_feature_chunks(torch, ex, rows, samples, seed, n=3):
+    """n chained feature chunks [(feats [rows, F, D], valid [rows, F])] of
+    seeded noise through the feature extractor `ex` (`samples` a chunk) on
+    the card, row 1's last chunk half full (its stream ends there)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    st, out = ex.init_stream_state(rows, samples), []
+    for i in range(n):
+        audio = (rng.standard_normal((rows, samples)) * 500).astype(np.float32)
+        nsamp = np.full(rows, samples, np.int32)
+        if i == n - 1:
+            nsamp[1] = samples // 2
+        st, feats, fv = ex.extract_chunk(st, torch.from_numpy(audio).cuda(),
+                                         n_samples=torch.from_numpy(nsamp).cuda())
+        out.append((feats, fv))
+    return out
+
+
+def am_run(torch, am, frames, chunks, ivec, process, flush):
+    """Every call's {state.*, out, out_valid} from `process` over the chained
+    chunks from a fresh state (`frames` chunk frames), then `flush`'s, all
+    kept to the end."""
+    st, kept = am.init_stream_state(chunks[0][0].shape[0], frames), []
+    for chunk in [*chunks, None]:
+        st, out, ov = flush(st, ivec) if chunk is None else process(st, *chunk, ivec)
+        kept.append({**{f"state.{k}": v for k, v in st.items()}, "out": out, "out_valid": ov})
+    torch.cuda.synchronize()
+    return kept
+
+
+def am_captured_vs_eager(torch, name, am, frames, chunks, ivec=None):
+    """Phase 19 am: process_chunk and flush (the captured programs of the
+    chunks' shape and of the flush's [B, R + ss], captured by the first
+    call of a new shape) against process_chunk_eager and the eager flush,
+    bit for bit over the chained chunks and the flush: every call's state,
+    out and out_valid, all kept to the end, so that a returned tensor a
+    later replay overwrote would show.  Every call must replay, the flush
+    must emit and every output be finite."""
+    from vosk_tpu_torch.models.streaming import GRAPH_COUNTS as AM_COUNTS
+
+    t0 = time.perf_counter()
+    r0, c0 = AM_COUNTS["replays"], AM_COUNTS["captures"]
+    got = am_run(torch, am, frames, chunks, ivec, am.process_chunk, am.flush)
+    replays, captures = AM_COUNTS["replays"] - r0, AM_COUNTS["captures"] - c0
+    want = am_run(torch, am, frames, chunks, ivec, am.process_chunk_eager, am._flush_impl)
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in b:
+            if not torch.equal(bits(torch, a[k]), bits(torch, b[k])):
+                raise AssertionError(f"19 am {name}: call {i} {k}: captured != eager")
+    if replays != len(chunks) + 1:
+        raise AssertionError(f"19 am {name}: {replays} replays for {len(chunks) + 1} calls")
+    emitted = [int(k["out_valid"].sum().item()) for k in want]
+    if not emitted[-1] or not all(torch.isfinite(k["out"]).all().item() for k in want):
+        raise AssertionError(f"19 am {name}: the flush emitted nothing or an output is not "
+                             f"finite (frames emitted {emitted})")
+    CAPTURE_SECONDS[f"am {name}"] = time.perf_counter() - t0
+    B, F, D = chunks[0][0].shape
+    log(f"19 am {name}: {type(am).__name__} B={B} F={F} D={D} (flush F="
+        f"{am.right_context + am.subsample}), i-vector "
+        f"{None if ivec is None else tuple(ivec.shape)}: captured = eager bit for bit (state, "
+        f"out, out_valid of {len(chunks)} chained chunks and the flush, kept to the end); "
+        f"{replays} replays, {captures} captures; frames emitted {emitted}; "
+        f"{CAPTURE_SECONDS[f'am {name}']:.3f} s")
+
+
+def am_chunk_times(torch, name, am, frames, feats, valid, ivec=None):
+    """Phase 19 am: host ms a process_chunk call, captured against eager, in
+    CAPTURE_ROUNDS rounds of (eager, captured, captured, eager), each
+    CAPTURE_REPS calls from the same state (one chunk in its history) ended
+    by one synchronize: median [min, max]; and the device memory that a
+    program of this shape holds (its static tensors and graph pool), from
+    the first call of a copy of the AM that has no program, beside the eager
+    call's peak."""
+    import copy
+
+    t0 = time.perf_counter()
+    B = feats.shape[0]
+    ways = {"eager": am.process_chunk_eager, "captured": am.process_chunk}
+    st, _, _ = ways["captured"](am.init_stream_state(B, frames), feats, valid, ivec)
+    ts = {w: [] for w in ways}
+    for _ in range(CAPTURE_ROUNDS):
+        for w in ("eager", "captured", "captured", "eager"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(CAPTURE_REPS):
+                ways[w](st, feats, valid, ivec)
+            torch.cuda.synchronize()
+            ts[w].append((time.perf_counter() - t1) / CAPTURE_REPS * 1e3)
+    fresh = copy.copy(am)  # the same weights; a copy starts with no program
+    mem = {}
+    for w, fn in (("eager", fresh.process_chunk_eager), ("captured", fresh.process_chunk)):
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, feats, valid, ivec)
+        torch.cuda.synchronize()
+        mem[w] = ((torch.cuda.max_memory_allocated() - a0) / 2**20,
+                  (torch.cuda.memory_allocated() - a0) / 2**20,
+                  (torch.cuda.memory_reserved() - r0) / 2**20)
+    del fresh
+    CAPTURE_SECONDS[f"am {name} times"] = time.perf_counter() - t0
+    log(f"19 am process_chunk {name} ({type(am).__name__} B={B} F={feats.shape[1]}), host ms a "
+        f"call, {CAPTURE_ROUNDS} rounds of (eager, captured, captured, eager) x "
+        f"{CAPTURE_REPS} calls: eager {spread(ts['eager'])}, captured "
+        f"{spread(ts['captured'])}; {verdict(ts['captured'], ts['eager'])}; device memory "
+        f"(MiB: peak over the call, held after it, reserved after it) eager "
+        f"{[round(x, 3) for x in mem['eager']]}, first captured call (the capture) "
+        f"{[round(x, 3) for x in mem['captured']]} ({SMI})")
+    return ts
+
+
+IVECTOR_DIM = 100  # phase 9's i-vector (run_ivector_common.sh's dim)
+
+
+def nnet3_ivector_am(bm):
+    """Phase 9's AM without its directory (for `--capture-only`): phase 4's
+    TDNN-F as nnet3 (tdnnf_to_nnet3) with the i-vector input that
+    write_ivector_kaldi_dir grafts (dim 100, seed SEED), on the card."""
+    from vosk_tpu_torch.io.kaldi_export import tdnnf_to_nnet3
+    from vosk_tpu_torch.models.am import Nnet3Am
+    from vosk_tpu_torch.utils.kaldidata import graft_ivector
+
+    m = bm._model
+    return Nnet3Am(graft_ivector(tdnnf_to_nnet3(m.am_config, m.am_params), IVECTOR_DIM,
+                                 seed=SEED), device="cuda")
+
+
+def phase_am_nnet3(torch, am, ex, samples, frames):
+    """19 am on an nnet3 AM with an i-vector input at the combined
+    recognizer step's STEP_ROWS rows: 3 chained chunks of features from
+    `ex` and the flush, seeded i-vectors."""
+    from vosk_tpu_torch.io.native import STEP_ROWS
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    ivec = torch.randn((STEP_ROWS, am.net.nodes[am.ivector_input].dim), generator=g).cuda()
+    am_captured_vs_eager(torch, f"nnet3 with i-vectors B={STEP_ROWS}", am, frames,
+                         am_feature_chunks(torch, ex, STEP_ROWS, samples, SEED + 13), ivec)
+
+
 def phase_model(torch, dev, tmp):
     from vosk_tpu_torch.io import native
     from vosk_tpu_torch.utils import benchdata
@@ -864,7 +1027,8 @@ def phase_model(torch, dev, tmp):
 
 
 def phase_front_end(torch, bm):
-    """Features + AM on the card against the same modules on the CPU."""
+    """Features + AM on the card against the same modules on the CPU; then
+    phase 19 on the AM (`am_captured_vs_eager`, `am_chunk_times`)."""
     import numpy as np
 
     from vosk_tpu_torch.models.tdnnf import TdnnfModel
@@ -905,6 +1069,17 @@ def phase_front_end(torch, bm):
         f"{mm_err:.3e} (bound 1e-4, outputs up to {ref.abs().max().item():.3f})")
     if got.dtype != torch.float32 or not mm_err <= 1e-4:
         raise AssertionError("bf16 AM layer does not keep f32 products on the card")
+    # phase 19 on this AM: captured against eager over 3 chained feature
+    # chunks and the flush, at B = 32 and at the combined recognizer step's
+    # STEP_ROWS rows; chunk times at both
+    from vosk_tpu_torch.io.native import STEP_ROWS
+
+    chunks = am_feature_chunks(torch, p.ex, B, p.chunk_samples, SEED + 12)
+    rows = [(f[:STEP_ROWS], v[:STEP_ROWS]) for f, v in chunks]
+    am_captured_vs_eager(torch, f"bench TDNN-F B={B}", p.am, p.max_feat_frames, chunks)
+    am_captured_vs_eager(torch, f"combined step B={STEP_ROWS}", p.am, p.max_feat_frames, rows)
+    am_chunk_times(torch, f"B={B}", p.am, p.max_feat_frames, *chunks[1])
+    am_chunk_times(torch, f"combined step B={STEP_ROWS}", p.am, p.max_feat_frames, *rows[1])
 
 
 def phase_decoder(torch, bm):
@@ -1245,13 +1420,27 @@ def eager_decode(dec):
         del dec.decode_chunk
 
 
+@contextlib.contextmanager
+def eager_am(am):
+    """A context in which am's process_chunk (and so its flush) is its
+    eager body."""
+    am.process_chunk = am.process_chunk_eager
+    try:
+        yield
+    finally:
+        del am.process_chunk
+
+
 def phase_run_scan(torch, bm):
     """bench.py's path at its operating point, B = 32; then phase 19 on it:
     run_scan with decode_chunk eager against captured, interleaved (eager,
     captured, captured, eager) CAPTURE_ROUNDS times (ms a decoded frame,
     median and range, the same best costs), one profiled drive of each
     (`trace_drive`: device busy time and idle share), and decode_chunk's
-    chunk times at T = 17."""
+    chunk times at T = 17; then, the decoder captured in both, the AM's
+    process_chunk eager against captured the same way, and its chunk times
+    at F = 48."""
+    from vosk_tpu_torch.models.streaming import GRAPH_COUNTS as AM_COUNTS
     from vosk_tpu_torch.runtime.pipeline import FusedPipeline
 
     model = bm._model
@@ -1321,6 +1510,44 @@ def phase_run_scan(torch, bm):
     chunk_times(torch, f"run_scan chunk B={B} T={pipe.T}", dec, state["frontier"],
                 ll_bias[0], torch.ones((B, pipe.T), dtype=torch.bool, device=dec.device))
     CAPTURE_SECONDS["run_scan"] = time.perf_counter() - t19
+
+    t19 = time.perf_counter()
+    am = pipe.am
+
+    def drive_am(eager):
+        r0 = AM_COUNTS["replays"]
+        with eager_am(am) if eager else contextlib.nullcontext():
+            dt, b = drive(False)
+        if AM_COUNTS["replays"] - r0 != (0 if eager else n_chunks):
+            raise AssertionError(f"19 am run_scan ({'eager' if eager else 'captured'} AM): "
+                                 f"{AM_COUNTS['replays'] - r0} AM replays in {n_chunks} chunks")
+        return dt, b
+
+    runs = {"eager": [], "captured": []}
+    for _ in range(CAPTURE_ROUNDS):
+        for way in ("eager", "captured", "captured", "eager"):
+            dt, b = drive_am(way == "eager")
+            if not torch.equal(bits(torch, b), bits(torch, best_h)):
+                raise AssertionError(f"19 am run_scan ({way} AM): best differs from phase 8's "
+                                     "drive")
+            runs[way].append(dt / frames * 1e3)
+    log(f"19 am run_scan B={B}, {n_chunks} chunks x {pipe.T} frames, decoder captured, ms per "
+        f"decoded frame, {CAPTURE_ROUNDS} rounds of (eager AM, captured AM, captured AM, eager "
+        f"AM): eager AM {spread(runs['eager'])} {runs['eager']}, captured AM "
+        f"{spread(runs['captured'])} {runs['captured']}; "
+        f"{verdict(runs['captured'], runs['eager'])}; best bit-equal to phase 8's in every "
+        f"drive ({SMI})")
+    for way in ("eager", "captured"):
+        tr = trace_drive(torch, lambda: drive_am(way == "eager"))
+        med = statistics.median(runs[way]) * frames
+        log(f"19 am run_scan {way} AM profiled: span {tr['span_ms']:.3f} ms (unprofiled median "
+            f"{med:.3f}), device busy {tr['busy_ms']:.3f} ms (expand_v4 + select_v4 "
+            f"{tr['step_ms']:.3f}), idle share {tr['idle']:.4f} of the span and "
+            f"{1 - tr['busy_ms'] / med:.4f} of the unprofiled median; {tr['events']} device "
+            f"events, the most device time [ms, events]: {json.dumps(tr['top'])} ({SMI})")
+    am_chunks = am_feature_chunks(torch, pipe.ex, B, S, SEED + 14, n=2)
+    am_chunk_times(torch, f"run_scan chunk B={B}", am, pipe.F, *am_chunks[1])
+    CAPTURE_SECONDS["am run_scan"] = time.perf_counter() - t19
     return launches
 
 
@@ -2001,6 +2228,7 @@ def phase_kaldi(torch, tmp):
     log("kaldi streaming stages (host s): " + stage_line(t["stages"]))
     STAGES["kaldi"] = t["stages"]
     log("kaldi streaming result: " + json.dumps(json.loads(outs[-1])["text"][:60]))
+    phase_am_nnet3(torch, am, r.ex, r.chunk_samples, r.max_feat_frames)  # phase 19
     shapes = (dec.K * dec.M, dec.K)
     del model, nm, am, dec, r, t  # the batch phase's peak memory is its own
     gc.collect()
@@ -4410,6 +4638,10 @@ def main() -> int:
     if sys.argv[1:] == ["--capture-only"]:  # phases 4-8 with phase 19's checks in them
         with tempfile.TemporaryDirectory() as tmp:
             bm = phase_model(torch, dev, tmp)
+            phase_front_end(torch, bm)
+            p = bm._pipeline
+            phase_am_nnet3(torch, nnet3_ivector_am(bm), p.ex, p.chunk_samples,
+                           p.max_feat_frames)
             phase_decoder(torch, bm)
             phase_serving(torch, bm)
             phase_streaming(torch, Path(tmp) / "bench_model")
@@ -4602,6 +4834,7 @@ def main() -> int:
             "profiled_launches_per_frame": sum(v for k, v in profile.items() if name in k),
             # captured chunk programs replayed on the main paths (phase 19)
             **{f"graph_replays_{k}": v for k, v in REPLAYS.items()},
+            **{f"am_graph_replays_{k}": v for k, v in AM_REPLAYS.items()},
             **({f"{shape}_{k}": t[name][i] for shape, t in exact3_times.items()
                 for i, k in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}
                if name == "select_v4" else {}),

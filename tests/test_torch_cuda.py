@@ -2,7 +2,9 @@
 kernels (expand_v4 over packed16 and exact3 rows and over frontier stripes,
 select_v4, also on the sharded search's merged pool), the decoder with
 them, its captured chunk programs (CUDA graphs) against its eager body, its
-sharded search over ranks that share the card, the v3 decoder with
+sharded search over ranks that share the card, the AM's captured chunk
+programs (a TDNN-F, and an nnet3 AM with i-vectors) against the AM's eager
+body, the v3 decoder with
 the gather kernel at its four sites, the CSR decoder, a streaming KaldiRecognizer decode
 (v4, and v3 on a graph that keeps labeled eps arcs), a Kaldi-layout
 directory with i-vectors, the rescoring RNNLMs (Kaldi TDNN-LSTM and
@@ -647,6 +649,149 @@ def test_captured_chunks_from_two_threads(cuda_device, capture_decoder):
         assert len(got[i]) == 5
         for run in got[i]:
             _same_chunks(run, want[i])
+
+
+@pytest.fixture(scope="module")
+def capture_ams():
+    """The AMs whose chunks replay captured programs, on the card: a bf16
+    TDNN-F (40/256/64/128/512, the bench model's 11 layers) and the same
+    network exported as nnet3 with an i-vector input of dim 16 grafted onto
+    its first layer (models/am.py Nnet3Am)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card (module docstring)")
+    from vosk_tpu_torch.io.kaldi_export import tdnnf_to_nnet3
+    from vosk_tpu_torch.models.am import Nnet3Am
+    from vosk_tpu_torch.models.tdnnf import TdnnfConfig, TdnnfModel, init_params
+    from vosk_tpu_torch.utils.kaldidata import graft_ivector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TdnnfConfig(hidden_dim=256, bottleneck_dim=64, prefinal_dim=128, num_pdfs=512,
+                      compute_dtype="bfloat16")
+    params = init_params(cfg, seed=5)
+    return {"tdnnf": TdnnfModel(cfg, params, device="cuda"),
+            "nnet3": Nnet3Am(graft_ivector(tdnnf_to_nnet3(cfg, params), 16, seed=5),
+                             device="cuda")}
+
+
+def _am_chunks(am, B, F, seed, n=3):
+    """n chunks of seeded features [B, F, D] on the card with masked tails,
+    and the i-vectors [B, 16] when the AM takes them."""
+    gen = torch.Generator().manual_seed(seed)
+    chunks = []
+    for i in range(n):
+        v = torch.ones((B, F), dtype=torch.bool)
+        v[1 % B, F - 3 - i:] = False
+        chunks.append((torch.randn((B, F, am.feat_dim), generator=gen).cuda(), v.cuda()))
+    ivec = (torch.randn((B, 16), generator=gen).cuda()
+            if getattr(am, "has_ivector", False) else None)
+    return chunks, ivec
+
+
+def _am_chained(process, flush, am, chunks, ivec):
+    """Every chunk's (state, out, out_valid), then the flush's, from
+    process and flush over the chained chunks, kept to the end."""
+    B, F = chunks[0][1].shape
+    st, kept = am.init_stream_state(B, F), []
+    for feats, valid in chunks:
+        st, out, ov = process(st, feats, valid, ivec)
+        kept.append({**{f"state.{k}": v for k, v in st.items()}, "out": out, "out_valid": ov})
+    st, out, ov = flush(st, ivec)
+    kept.append({**{f"state.{k}": v for k, v in st.items()}, "out": out, "out_valid": ov})
+    torch.cuda.synchronize()
+    return kept
+
+
+@pytest.mark.parametrize("kind,B", [("tdnnf", 32), ("tdnnf", 4), ("nnet3", 4), ("nnet3", 32)])
+def test_am_captured_chunks_equal_eager(cuda_device, capture_ams, kind, B):
+    """process_chunk and flush replay the captured programs of their shapes
+    (the chunk's, captured by a first call on other features, and the
+    flush's [B, R + ss]) and equal the eager body bit for bit over 3 chained
+    chunks and the flush: state, out and out_valid of every call, kept to
+    the end (a returned tensor that a later replay overwrote would show).
+    One replay a call."""
+    from vosk_tpu_torch.models import streaming
+
+    am = capture_ams[kind]
+    assert am.graph_eligible
+    F = 20
+    chunks, ivec = _am_chunks(am, B, F, 41)
+    primer, _ = _am_chunks(am, B, F, 42, n=1)
+    am.process_chunk(am.init_stream_state(B, F), *primer[0], ivec)
+    counts = streaming.GRAPH_COUNTS
+    before = (counts["replays"], counts["captures"])
+    got = _am_chained(am.process_chunk, am.flush, am, chunks, ivec)
+    assert counts["replays"] - before[0] == 4 and counts["captures"] - before[1] <= 1
+    want = _am_chained(am.process_chunk_eager, am._flush_impl, am, chunks, ivec)
+    _same_chunks(got, want)
+    shapes = {key[1:3] for key in am._programs}
+    assert {(B, F), (B, am.right_context + am.subsample)} <= shapes
+    assert len(am._programs) <= streaming.AM_CHUNK_PROGRAMS
+    assert want[-1]["out_valid"].any() and torch.isfinite(want[-1]["out"]).all()
+
+
+def test_am_captured_from_two_threads(cuda_device, capture_ams):
+    """Two threads stream different inputs through one nnet3 AM (i-vectors
+    included), one of them on a stream of its own, 3 chunks and a flush 5
+    times each, through the shared programs of their shapes: each gets its
+    own eager result every time."""
+    am = capture_ams["nnet3"]
+    inputs = [_am_chunks(am, 4, 20, seed) for seed in (51, 52)]
+    want = [_am_chained(am.process_chunk_eager, am._flush_impl, am, *inp) for inp in inputs]
+    _am_chained(am.process_chunk, am.flush, am, *inputs[0])  # captured
+    got, errors = [[], []], []
+    start = threading.Barrier(2, timeout=60)
+
+    def worker(i):
+        try:
+            start.wait()
+            stream = torch.cuda.Stream(cuda_device) if i else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                for _ in range(5):
+                    got[i].append(_am_chained(am.process_chunk, am.flush, am, *inputs[i]))
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 5
+        for run in got[i]:
+            _same_chunks(run, want[i])
+
+
+def test_am_program_eviction_waits_for_its_last_call(cuda_device, monkeypatch):
+    """With room for one program, a call of a new shape evicts the last
+    shape's program only once that program's last call is done on the
+    device (its copy-out enqueued behind a long device sleep), and what
+    that call returned stays its eager result."""
+    from vosk_tpu_torch.models import streaming
+    from vosk_tpu_torch.models.tdnnf import TdnnfConfig, TdnnfModel, init_params
+
+    monkeypatch.setattr(streaming, "AM_CHUNK_PROGRAMS", 1)
+    cfg = TdnnfConfig(hidden_dim=64, bottleneck_dim=16, prefinal_dim=32, num_pdfs=64)
+    am = TdnnfModel(cfg, init_params(cfg, seed=6), device="cuda")
+    chunks, _ = _am_chunks(am, 8, 20, 61, n=2)
+    st = am.init_stream_state(8, 20)
+    am.process_chunk(st, *chunks[0])  # the F = 20 program
+    (key, first), = am._programs.items()
+    torch.cuda._sleep(200_000_000)  # the next call's copy-out waits behind it
+    got = am.process_chunk(st, *chunks[1])
+    am.flush(st)  # the flush's shape: evicts F = 20
+    assert first.done.query() and key not in am._programs and len(am._programs) == 1
+    want = am.process_chunk_eager(st, *chunks[1])
+    torch.cuda.synchronize()
+    for a, b in zip((*got[0].values(), *got[1:]), (*want[0].values(), *want[1:])):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_decoder_above_shared_cap_bit_equal(cuda_device, realistic_graph):

@@ -9,7 +9,9 @@ divide by priors; chain models have empty priors).
 
 The network's weights are carried to the device once, at construction
 (`io.nnet3.net_tensors`); the forward evaluates a batch of windows
-[B, W, D] directly where the source vmaps a per-sequence evaluation.
+[B, W, D] directly where the source vmaps a per-sequence evaluation.  On
+the card the streaming chunk, i-vector included, replays a captured CUDA
+graph per chunk shape (models/streaming.py `process_chunk`).
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ def _node_context(net: Nnet3, name: str, memo) -> tuple:
     return (l, r)
 
 
-class Nnet3Am(nn.Module, StreamingAm):
+class Nnet3Am(StreamingAm, nn.Module):
     def __init__(
         self,
         net: Nnet3,
@@ -78,6 +80,7 @@ class Nnet3Am(nn.Module, StreamingAm):
         device="cuda",
     ):
         super().__init__()
+        self._own_programs()
         net.check_acyclic()
         self.net = net
         self._subsample = subsample

@@ -18,7 +18,9 @@ rounds each gradient to bf16 as `jax.grad` of the source's product does.
 Both run the one forward, `tdnnf_forward`.  With `mesh` (parallel/mesh.py)
 a model axis of more than one rank makes it tensor parallel: each rank
 keeps its shard of the parameters (`mesh.am_param_sharding`, the source's
-rule) and the forward runs `TensorParallelOps`.
+rule) and the forward runs `TensorParallelOps`.  On the card the streaming
+chunk replays a captured CUDA graph (models/streaming.py `process_chunk`),
+except where the model is tensor parallel or trainable.
 """
 from __future__ import annotations
 
@@ -259,7 +261,7 @@ def tdnnf_forward(cfg: TdnnfConfig, p, feats: torch.Tensor, mm, ops=None) -> tor
     return out[:, :: cfg.subsample]
 
 
-class TdnnfModel(nn.Module, StreamingAm):
+class TdnnfModel(StreamingAm, nn.Module):
     """TDNN-F forward over parameters held as module parameters: frozen and
     pre-rounded for serving, or f32 master weights with gradients when
     `trainable`; streaming state = carried feature context (StreamingAm)."""
@@ -267,6 +269,7 @@ class TdnnfModel(nn.Module, StreamingAm):
     def __init__(self, cfg: TdnnfConfig, params: dict, device="cuda", trainable=False,
                  mesh=None):
         super().__init__()
+        self._own_programs()
         if cfg.ivector_dim:
             raise NotImplementedError(
                 "native TDNN-F models with an i-vector input are not ported; "

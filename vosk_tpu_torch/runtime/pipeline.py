@@ -33,8 +33,10 @@ stays channel-local through `decode_chunk`, as in the source.
 
 Not ported, by decision: the ragged unroll (ROADMAP A, "Not ported").  On
 the card each chunk's v4 decode replays its captured CUDA graph
-(`BatchViterbi.decode_chunk`, ops/viterbi.py), a rung's clone its own;
-features and the AM still run op by op (ROADMAP B4).
+(`BatchViterbi.decode_chunk`, ops/viterbi.py), a rung's clone its own,
+and so does the AM's chunk (`StreamingAm.process_chunk`,
+models/streaming.py) unless the TDNN-F is tensor parallel; the features
+still run op by op (ROADMAP B4).
 """
 from __future__ import annotations
 
